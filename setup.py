@@ -11,6 +11,7 @@ setup(
     package_data={
         "luminoth_tpu": ["models/*/base_config.yml", "native/*.c",
                          "tools/server/templates/*", "tools/server/static/*"],
+        "luminoth_tpu_torch": ["csrc/*.cu"],
     },
     install_requires=[
         "jax",
