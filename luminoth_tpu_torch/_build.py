@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
+_NAME_LOCKS = {}  # one per library: different sources build in parallel
 _LIBS = {}
 
 
@@ -61,8 +62,11 @@ def load(name, configure):
     """Build (if needed) and load ``csrc/<name>.cu``; memoized per name.
 
     ``configure(lib)`` declares the ctypes ``argtypes``/``restype``.
+    Loads of different names may run in parallel threads.
     """
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name not in _LIBS:
             path = library_path(name)
             if not path.exists():

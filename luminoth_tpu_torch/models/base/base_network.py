@@ -5,6 +5,12 @@ RGB-mean subtraction comes first, in float32; the trunk stops at the
 detection endpoint (``block3`` at output stride 16) and ``block4`` runs
 as the ROI tail. The port has the ResNet v1 family; the other
 architectures and the int8 serving profiles raise ``NotImplementedError``.
+
+Training keeps batch norm in its inference form (``train_batch_norm:
+False``, the detection default): the running statistics stay fixed and
+the affine ``weight``/``bias`` train. Updating the statistics
+(``train_batch_norm: True``) and rematerialization (``remat``) are not
+ported; :func:`check_trainable_config` raises for them.
 """
 
 import torch
@@ -58,6 +64,16 @@ def _parse_architecture(config):
     depth = int(architecture.rsplit("_", 1)[1])
     endpoint = config.get("endpoint") or DEFAULT_ENDPOINTS[architecture]
     return architecture, depth, endpoint
+
+
+def check_trainable_config(config):
+    """Raise ``NotImplementedError`` for base-network training knobs the port
+    does not have (``train_batch_norm``, ``remat``)."""
+    for flag in ("train_batch_norm", "remat"):
+        if config.get(flag):
+            raise NotImplementedError(
+                f"model.base_network.{flag} is not ported to PyTorch yet"
+            )
 
 
 class TruncatedBaseNetwork(nn.Module):

@@ -3,8 +3,10 @@
 Counterpart of the JAX package's ``models/fasterrcnn/rcnn.py``: optional
 mean-pooling over the crop, then ``layer_sizes`` dense layers with the
 configured activation (relu6), then the class scores (C+1) and per-class
-box deltas (4·C), both returned in float32. Inference only: dropout
-belongs to training, which is not ported yet.
+box deltas (4·C), both returned in float32. In training, dropout with
+``dropout_keep_prob < 1`` runs before the first dense layer and after each
+hidden one, drawn from an explicit ``torch.Generator`` (flax's
+``nn.Dropout``: keep with probability p, scale the kept by 1/p).
 """
 
 import torch
@@ -32,6 +34,7 @@ class RCNNHead(nn.Module):
         self.activation = get_activation(
             config.get("activation_function", "relu6")
         )
+        self.keep_prob = float(config.get("dropout_keep_prob", 1.0))
         if not self.use_mean:
             raise NotImplementedError(
                 "rcnn.use_mean=False is not ported to PyTorch yet"
@@ -44,11 +47,23 @@ class RCNNHead(nn.Module):
         self.fc_classifier = Linear(in_features, num_classes + 1)
         self.fc_bbox = Linear(in_features, num_classes * 4)
 
-    def forward(self, roi_features):
-        """(N, S, S, C) tail features -> ((N, C+1) scores, probs, (N, 4·C))."""
-        net = roi_features.to(self.dtype).mean(dim=(1, 2))
+    def _dropout(self, net, generator):
+        if not self.training or self.keep_prob >= 1.0:
+            return net
+        keep = torch.rand(net.shape, generator=generator,
+                          device=net.device) < self.keep_prob
+        return torch.where(keep, net / self.keep_prob, torch.zeros_like(net))
+
+    def forward(self, roi_features, generator=None):
+        """(N, S, S, C) tail features -> ((N, C+1) scores, probs, (N, 4·C)).
+
+        ``generator`` draws the dropout masks in training.
+        """
+        net = self._dropout(roi_features.to(self.dtype).mean(dim=(1, 2)),
+                            generator)
         for name in self.layer_names:
-            net = self.activation(getattr(self, name)(net))
+            net = self._dropout(self.activation(getattr(self, name)(net)),
+                                generator)
         cls_score = self.fc_classifier(net).float()
         bbox_offsets = self.fc_bbox(net).float()
         return cls_score, torch.softmax(cls_score, dim=-1), bbox_offsets

@@ -105,6 +105,11 @@ def nms_alive_reference(boxes, valid, iou_threshold, max_survivors=0,
     return alive[:, :n]
 
 
+def load_library():
+    """Build (at first use) and load ``csrc/nms.cu``."""
+    return _build.load("nms", _configure_nms)
+
+
 def _configure_nms(lib):
     lib.lumi_nms_alive.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -143,7 +148,7 @@ def nms_alive_cuda(boxes, valid, iou_threshold, max_survivors=0):
         raise ValueError("nms_alive_cuda takes contiguous tensors")
     g, n = valid.shape
     alive = torch.empty((g, n), dtype=torch.bool, device=boxes.device)
-    lib = _build.load("nms", _configure_nms)
+    lib = load_library()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.lumi_nms_alive(

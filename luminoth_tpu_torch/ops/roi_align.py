@@ -4,10 +4,12 @@ Counterpart of ``luminoth_tpu/ops/roi_align.py``. Boxes are normalized
 ``(y1, x1, y2, x2)`` like TF's op: sample positions are
 ``y1·(H−1) + i·(y2−y1)·(H−1)/(S−1)`` and samples outside the map are 0.
 
-Square crops with the fused pool go to kernel K2 (``csrc/roi_align.cu``)
-for CUDA tensors and to :func:`roi_crop_pool_reference` for CPU tensors.
-Rectangular crops, and crops without the pool, take the separable einsum
-formulation on every device, as they take the XLA path in the JAX package.
+Square crops with the fused pool go through :class:`RoiCropPool`: kernel
+K2 (``csrc/roi_align.cu``) forward and kernel K3 backward for CUDA tensors,
+:func:`roi_crop_pool_reference` and :func:`roi_crop_pool_backward_reference`
+for CPU tensors. Rectangular crops, and crops without the pool, take the
+separable einsum formulation (autograd through it) on every device, as they
+take the XLA path in the JAX package. No path differentiates the boxes.
 """
 
 import ctypes
@@ -116,9 +118,64 @@ def roi_crop_pool_reference(feature_maps, boxes, crop_size):
     ])
 
 
+def roi_crop_pool_backward_reference(feature_maps, boxes, grad, crop_size,
+                                     chunk_size=64):
+    """Plain PyTorch version of kernel K3: d_feature_maps of the crop+pool.
+
+    Args:
+        feature_maps: (B, H, W, C) NHWC maps (float32 or bfloat16).
+        boxes: (B, R, 4) normalized ``(y1, x1, y2, x2)`` boxes.
+        grad: (B, R, S/2, S/2, C) cotangent of the pooled crops.
+        crop_size: even square side S.
+        chunk_size: ROIs per chunk (bounds the recomputed crop).
+
+    Returns:
+        float32 (B, H, W, C). The pre-pool crop is recomputed in float32
+        from the map's values, as kernel K2 sums it (one rounding, not the
+        TPU kernel's bf16 stage-1 cast), each pooled cotangent goes to its
+        window's maxima split evenly over ties (``is_max / ties``), then
+        through Wxᵀ and Wyᵀ, accumulated in float32, as
+        ``_roi_align_bwd_xla`` does.
+    """
+    s = int(crop_size)
+    p = s // 2
+    b, h, w, c = feature_maps.shape
+    d_fm = torch.zeros((b, h, w, c), dtype=torch.float32,
+                       device=feature_maps.device)
+    boxes = boxes.float()
+    for i in range(b):
+        fm = feature_maps[i].float()
+        for start in range(0, boxes.shape[1], chunk_size):
+            wy, wx = interp_weights(boxes[i, start:start + chunk_size], h, w,
+                                    s)
+            g = grad[i, start:start + chunk_size].float()
+            r = g.shape[0]
+            rows = torch.einsum("rsh,hwc->rswc", wy, fm)
+            crop = torch.einsum("rtw,rswc->rstc", wx, rows)
+            win = crop.reshape(r, p, 2, p, 2, c)
+            is_max = (win == win.amax(dim=(2, 4), keepdim=True)).float()
+            ties = is_max.sum(dim=(2, 4), keepdim=True)
+            g_crop = (is_max / ties * g.reshape(r, p, 1, p, 1, c)).reshape(
+                r, s, s, c)
+            d_rows = torch.einsum("rtw,rstc->rswc", wx, g_crop)
+            d_fm[i] += torch.einsum("rsh,rswc->hwc", wy, d_rows)
+    return d_fm
+
+
+def load_library():
+    """Build (at first use) and load ``csrc/roi_align.cu``."""
+    return _build.load("roi_align", _configure_roi)
+
+
 def _configure_roi(lib):
     for fn in (lib.lumi_roi_crop_pool_f32, lib.lumi_roi_crop_pool_bf16):
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+    for fn in (lib.lumi_roi_crop_pool_bwd_f32,
+               lib.lumi_roi_crop_pool_bwd_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
@@ -126,20 +183,20 @@ def _configure_roi(lib):
     lib.lumi_cuda_error_string.restype = ctypes.c_char_p
 
 
-def roi_crop_pool_cuda(feature_maps, boxes, crop_size):
-    """Kernel K2: fused bilinear crop + 2x2 max-pool, on the GPU.
-
-    Same arguments and result as :func:`roi_crop_pool_reference`. float32
-    maps match it to float32 rounding; bf16 maps are summed in float32 and
-    rounded once, so they are within one bf16 rounding (2^-8 relative) of
-    the float32 result on the same inputs.
-    """
-    if not (feature_maps.is_cuda and boxes.is_cuda):
-        raise ValueError("roi_crop_pool_cuda takes CUDA tensors")
-    if feature_maps.device != boxes.device:
-        raise ValueError("feature maps and boxes lie on different devices")
+def _check_kernel_args(what, feature_maps, boxes, crop_size, *others):
+    """Validate the tensors of a K2/K3 launch; returns the crop side."""
+    tensors = (feature_maps, boxes) + others
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{what} takes CUDA tensors")
+    if any(t.device != feature_maps.device for t in tensors):
+        raise ValueError(f"{what}: tensors lie on different devices")
     if boxes.dtype != torch.float32:
         raise TypeError(f"boxes must be float32, got {boxes.dtype}")
+    if feature_maps.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(
+            f"feature maps must be float32 or bfloat16, got "
+            f"{feature_maps.dtype}"
+        )
     if feature_maps.dim() != 4 or boxes.dim() != 3 or boxes.shape[-1] != 4 or (
         boxes.shape[0] != feature_maps.shape[0]
     ):
@@ -150,18 +207,26 @@ def roi_crop_pool_cuda(feature_maps, boxes, crop_size):
     s = int(crop_size)
     if s < 2 or s > 64 or s % 2:
         raise ValueError(f"crop_size must be even and in [2, 64], got {s}")
-    if not (feature_maps.is_contiguous() and boxes.is_contiguous()):
-        raise ValueError("roi_crop_pool_cuda takes contiguous tensors")
-    lib = _build.load("roi_align", _configure_roi)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} takes contiguous tensors")
+    return s
+
+
+def roi_crop_pool_cuda(feature_maps, boxes, crop_size):
+    """Kernel K2: fused bilinear crop + 2x2 max-pool, on the GPU.
+
+    Same arguments and result as :func:`roi_crop_pool_reference`. float32
+    maps match it to float32 rounding; bf16 maps are summed in float32 and
+    rounded once, so they are within one bf16 rounding (2^-8 relative) of
+    the float32 result on the same inputs.
+    """
+    s = _check_kernel_args("roi_crop_pool_cuda", feature_maps, boxes,
+                           crop_size)
+    lib = load_library()
     entry = {
         torch.float32: lib.lumi_roi_crop_pool_f32,
         torch.bfloat16: lib.lumi_roi_crop_pool_bf16,
-    }.get(feature_maps.dtype)
-    if entry is None:
-        raise TypeError(
-            f"feature maps must be float32 or bfloat16, got "
-            f"{feature_maps.dtype}"
-        )
+    }[feature_maps.dtype]
     b, h, w, c = feature_maps.shape
     r = boxes.shape[1]
     out = torch.empty((b, r, s // 2, s // 2, c), dtype=feature_maps.dtype,
@@ -180,6 +245,83 @@ def roi_crop_pool_cuda(feature_maps, boxes, crop_size):
 roi_crop_pool_cuda.launches = 0
 
 
+def roi_crop_pool_backward_cuda(feature_maps, boxes, grad, crop_size):
+    """Kernel K3: d_feature_maps of the fused crop + 2x2 max-pool, on the GPU.
+
+    Same arguments and result as :func:`roi_crop_pool_backward_reference`
+    (``grad`` in the maps' dtype). The window maxima are found on samples
+    recomputed with kernel K2's float32 arithmetic, so the routing follows
+    K2's output; float32 atomics accumulate in an order that changes from
+    run to run.
+    """
+    s = _check_kernel_args("roi_crop_pool_backward_cuda", feature_maps,
+                           boxes, crop_size, grad)
+    b, h, w, c = feature_maps.shape
+    r = boxes.shape[1]
+    if grad.dtype != feature_maps.dtype or tuple(grad.shape) != (
+        b, r, s // 2, s // 2, c
+    ):
+        raise ValueError(
+            f"grad must be {feature_maps.dtype} of shape "
+            f"{(b, r, s // 2, s // 2, c)}, got {grad.dtype} "
+            f"{tuple(grad.shape)}"
+        )
+    lib = load_library()
+    entry = {
+        torch.float32: lib.lumi_roi_crop_pool_bwd_f32,
+        torch.bfloat16: lib.lumi_roi_crop_pool_bwd_bf16,
+    }[feature_maps.dtype]
+    d_fm = torch.zeros((b, h, w, c), dtype=torch.float32,
+                       device=feature_maps.device)
+    with torch.cuda.device(feature_maps.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = entry(
+            feature_maps.data_ptr(), boxes.data_ptr(), grad.data_ptr(),
+            d_fm.data_ptr(), b, r, h, w, c, s, stream,
+        )
+    _build.check_status(lib, status, "roi_crop_pool_backward_cuda")
+    roi_crop_pool_backward_cuda.launches += 1
+    return d_fm
+
+
+roi_crop_pool_backward_cuda.launches = 0
+
+
+class RoiCropPool(torch.autograd.Function):
+    """Square crop + 2x2 max-pool with its hand-written backward.
+
+    CUDA maps take kernels K2 (forward) and K3 (backward), CPU maps their
+    plain versions, so both devices run the same autograd wiring. The boxes
+    get no gradient (the JAX VJP returns zero cotangents for them), and
+    d_feature_maps comes back in the maps' dtype, as ``_roi_align_bwd``
+    casts it.
+    """
+
+    @staticmethod
+    def forward(ctx, feature_maps, boxes, crop_size):
+        ctx.crop_size = crop_size
+        ctx.save_for_backward(feature_maps, boxes)
+        if use_kernel(feature_maps):
+            return roi_crop_pool_cuda(
+                feature_maps.contiguous(), boxes.contiguous(), crop_size
+            )
+        return roi_crop_pool_reference(feature_maps, boxes, crop_size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        feature_maps, boxes = ctx.saved_tensors
+        if use_kernel(feature_maps):
+            d_fm = roi_crop_pool_backward_cuda(
+                feature_maps.contiguous(), boxes.contiguous(),
+                grad.to(feature_maps.dtype).contiguous(), ctx.crop_size,
+            )
+        else:
+            d_fm = roi_crop_pool_backward_reference(
+                feature_maps, boxes, grad, ctx.crop_size
+            )
+        return d_fm.to(feature_maps.dtype), None, None
+
+
 def roi_crop_pool_batch(feature_maps, rois, im_shape, crop_size=14,
                         pool=True):
     """Crop and pool (B, R, 4) xyxy rois from (B, H, W, C) NHWC maps.
@@ -193,15 +335,12 @@ def roi_crop_pool_batch(feature_maps, rois, im_shape, crop_size=14,
     # reciprocal, one ulp off the quotient the JAX version computes.
     frame = torch.tensor([im_shape[1], im_shape[0]] * 2, dtype=torch.float32,
                          device=rois.device)
-    x1, y1, x2, y2 = (rois.float() / frame).unbind(-1)
+    # No gradient reaches the boxes on any path, as in the JAX op.
+    x1, y1, x2, y2 = (rois.detach().float() / frame).unbind(-1)
     boxes = torch.stack([y1, x1, y2, x2], dim=-1)
 
     if sy == sx and pool:
-        if use_kernel(feature_maps):
-            return roi_crop_pool_cuda(
-                feature_maps.contiguous(), boxes.contiguous(), sy
-            )
-        return roi_crop_pool_reference(feature_maps, boxes, sy)
+        return RoiCropPool.apply(feature_maps, boxes, sy)
 
     crops = torch.stack([
         crop_and_resize(fm, image_boxes, (sy, sx))

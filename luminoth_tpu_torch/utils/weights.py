@@ -12,7 +12,9 @@ plus two layout changes:
 
 :func:`init_variables` draws random variables in the flax layout with the
 JAX model's initializers, for runs that have no JAX (the weights then go
-through the same bridge). The torch → flax direction comes with training.
+through the same bridge). :func:`flax_variables_from_torch` is the way
+back: a model trained by the port leaves it in the flat flax layout, which
+``flatten_variables`` and the JAX package's ``load_params_npz`` both read.
 """
 
 import os
@@ -113,6 +115,51 @@ def load_flax_variables(model, variables):
     return model
 
 
+def flax_paths(model):
+    """``{state-dict key: flax path}`` for every variable of ``model``.
+
+    Batch norm modules map ``weight``/``bias``/``running_mean``/
+    ``running_var`` to ``params/<path>/BatchNorm/{scale,bias}`` and
+    ``batch_stats/<path>/BatchNorm/{mean,var}``; convs and dense layers
+    map ``weight``/``bias`` to ``params/<path>/{kernel,bias}``.
+    """
+    paths = {}
+    for name, module in model.named_modules():
+        prefix = f"{name}." if name else ""
+        path = name.replace(".", "/")
+        if isinstance(module, BatchNorm):
+            for attr, (collection, leaf) in _BN_TO_FLAX.items():
+                paths[prefix + attr] = f"{collection}/{path}/BatchNorm/{leaf}"
+        elif isinstance(module, (torch.nn.Conv2d, torch.nn.Linear)):
+            paths[prefix + "weight"] = f"params/{path}/kernel"
+            if module.bias is not None:
+                paths[prefix + "bias"] = f"params/{path}/bias"
+    return paths
+
+
+def flax_variables_from_torch(model):
+    """Flat ``{"params/<path>" or "batch_stats/<path>": float32 array}``
+    variables of ``model``.
+
+    The inverse of :func:`torch_state_from_flax`: conv kernels OIHW → HWIO,
+    dense kernels (out, in) → (in, out). ``np.savez(path, **result)``
+    writes the ``.npz`` layout both packages load.
+    """
+    state = model.state_dict()
+    paths = flax_paths(model)
+    missing = sorted(set(state) - set(paths))
+    if missing:
+        raise KeyError(f"no flax path for {missing[:5]} ({len(missing)})")
+    flat = {}
+    for key, path in paths.items():
+        value = state[key].detach().float().cpu().numpy()
+        if path.endswith("/kernel"):
+            value = (value.transpose(2, 3, 1, 0) if value.ndim == 4
+                     else value.T)
+        flat[path] = np.ascontiguousarray(value)
+    return flat
+
+
 # ------------------------------------------------------------ random init
 
 
@@ -208,23 +255,16 @@ def init_variables(config, seed=0):
             node = node.setdefault(part, {})
         node[leaf] = value.astype(np.float32)
 
-    for name, module in model.named_modules():
-        path = name.replace(".", "/")
-        if isinstance(module, BatchNorm):
-            for attr, (collection, leaf) in _BN_TO_FLAX.items():
-                tensor = getattr(module, attr)
-                fill = 1.0 if attr in ("weight", "running_var") else 0.0
-                put(collection, f"{path}/BatchNorm/{leaf}",
-                    np.full(tuple(tensor.shape), fill))
-        elif isinstance(module, (torch.nn.Conv2d, torch.nn.Linear)):
-            shape = tuple(module.weight.shape)
-            if module.weight.dim() == 4:  # OIHW → HWIO
-                shape = (shape[2], shape[3], shape[1], shape[0])
-            else:  # (out, in) → (in, out)
-                shape = shape[::-1]
-            put("params", f"{path}/kernel",
-                _draw(rng, shape, inits.get(path)))
-            if module.bias is not None:
-                put("params", f"{path}/bias",
-                    np.zeros(tuple(module.bias.shape)))
+    state = model.state_dict()
+    for key, path in flax_paths(model).items():
+        collection, rest = path.split("/", 1)
+        module_path, leaf = rest.rsplit("/", 1)
+        shape = tuple(state[key].shape)
+        if leaf == "kernel":
+            # OIHW → HWIO, (out, in) → (in, out)
+            shape = shape[2:] + shape[1::-1] if len(shape) == 4 else shape[::-1]
+            value = _draw(rng, shape, inits.get(module_path))
+        else:  # batch norm as the identity, zero biases
+            value = np.full(shape, 1.0 if leaf in ("scale", "var") else 0.0)
+        put(collection, rest, value)
     return variables

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 against their plain versions on the GPU.
+"""Kernels K1, K2 and K3 against their plain versions on the GPU.
 
 These need a CUDA device and ``nvcc`` (the kernels are built at first use);
 without a CUDA device they skip. Run them on a GPU machine with::
@@ -122,3 +122,85 @@ class TestROIKernel:
             roi_align.roi_crop_pool_cuda(fm, boxes, 7)
         with pytest.raises(ValueError):
             roi_align.roi_crop_pool_cuda(fm.transpose(1, 2), boxes, 14)
+
+
+class TestROIBackwardKernel:
+    _inputs = TestROIKernel._inputs
+
+    def _grad(self, rng, device, boxes, s=14, c=96):
+        b, r = boxes.shape[:2]
+        return torch.from_numpy(
+            rng.randn(b, r, s // 2, s // 2, c).astype(np.float32)
+        ).to(device)
+
+    @pytest.mark.parametrize("s", [2, 8, 14])
+    def test_f32_matches_plain(self, rng, device, s):
+        fm, boxes = self._inputs(rng, device)
+        g = self._grad(rng, device, boxes, s)
+        got = roi_align.roi_crop_pool_backward_cuda(fm, boxes, g, s)
+        want = roi_align.roi_crop_pool_backward_reference(fm, boxes, g, s)
+        assert got.dtype == torch.float32
+        # Random N(0, 1) maps: no window's top two samples lie within the
+        # float32 difference of the two crop computations.
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+    def test_bf16_matches_plain(self, rng, device):
+        fm, boxes = self._inputs(rng, device)
+        fm16 = fm.bfloat16()
+        g = self._grad(rng, device, boxes).bfloat16()
+        got = roi_align.roi_crop_pool_backward_cuda(fm16, boxes, g, 14)
+        want = roi_align.roi_crop_pool_backward_reference(fm16, boxes, g, 14)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+    def test_ties_split_evenly(self, device):
+        # Samples exactly on the cells of a constant map: all four samples
+        # of every window tie.
+        fm = torch.ones(1, 4, 4, 32, device=device)
+        boxes = torch.tensor([[[0.0, 0.0, 1.0, 1.0]]], device=device)
+        g = torch.ones(1, 1, 2, 2, 32, device=device)
+        got = roi_align.roi_crop_pool_backward_cuda(fm, boxes, g, 4)
+        want = roi_align.roi_crop_pool_backward_reference(fm, boxes, g, 4)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        torch.testing.assert_close(got.sum(), g.sum())
+
+    def test_autograd_grad_equals_plain_backward(self, rng, device):
+        """The CUDA path carries a gradient to the map (K3), equal to the
+        plain backward's; the boxes get none."""
+        fm, _ = self._inputs(rng, device)
+        rois = torch.from_numpy(
+            rng.uniform(0, 60, (2, 5, 4)).astype(np.float32)
+        ).to(device)
+        rois[..., 2:] += rois[..., :2]
+        rois.requires_grad_(True)
+        fm.requires_grad_(True)
+        before = roi_align.roi_crop_pool_backward_cuda.launches
+        pooled = roi_align.roi_crop_pool_batch(fm, rois, (104.0, 136.0))
+        g = torch.from_numpy(
+            rng.randn(*pooled.shape).astype(np.float32)).to(device)
+        (pooled * g).sum().backward()
+        assert roi_align.roi_crop_pool_backward_cuda.launches == before + 1
+        assert rois.grad is None
+        frame = torch.tensor([136.0, 104.0] * 2, device=device)
+        x1, y1, x2, y2 = (rois.detach() / frame).unbind(-1)
+        boxes = torch.stack([y1, x1, y2, x2], -1)
+        want = roi_align.roi_crop_pool_backward_reference(
+            fm.detach(), boxes, g, 14)
+        torch.testing.assert_close(fm.grad, want, rtol=1e-4, atol=1e-4)
+
+    def test_autograd_bf16_grad_dtype(self, rng, device):
+        fm, boxes = self._inputs(rng, device)
+        fm16 = fm.bfloat16().requires_grad_(True)
+        pooled = roi_align.RoiCropPool.apply(fm16, boxes, 14)
+        pooled.float().sum().backward()
+        assert fm16.grad.dtype == torch.bfloat16
+
+    def test_rejects_bad_inputs(self, rng, device):
+        fm, boxes = self._inputs(rng, device)
+        g = self._grad(rng, device, boxes)
+        with pytest.raises(ValueError):
+            roi_align.roi_crop_pool_backward_cuda(fm, boxes, g[:, :3], 14)
+        with pytest.raises(ValueError):
+            roi_align.roi_crop_pool_backward_cuda(
+                fm, boxes, g.bfloat16(), 14)
+        with pytest.raises(ValueError):
+            roi_align.roi_crop_pool_backward_cuda(fm, boxes, g.cpu(), 14)
