@@ -12,7 +12,8 @@ input, serves requests through ``Detector`` at full width (Faster R-CNN
 ResNet-101 v1, 80 classes, bf16, a 608x800 canvas, random weights from a
 seed), then trains that model through ``train.run`` on synthetic
 TFRecords (batch 8), resumes from its checkpoint, and holds the ROI
-backward kernel against its plain version on a train step's own tensors.
+backward kernel against its plain version on a train step's own tensors
+and times it there.
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, ...}``.
@@ -21,6 +22,7 @@ Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -149,7 +151,9 @@ def k2_library_ms(fm, boxes, s):
     """``F.grid_sample(align_corners=True)`` + ``F.max_pool2d`` at K2's
     shapes: the nearest library form, not the same function (TF zeroes a
     whole sample outside the map, grid_sample each tap), timed as a
-    yardstick only. The NCHW copy of the map is made before the clock."""
+    yardstick only. The NCHW copy of the map is made before the clock.
+    cuDNN's grid sampler is off: it refuses a float32 output of more than
+    2^31 elements (the serving shape's), PyTorch's own kernel takes it."""
     import torch
     import torch.nn.functional as F
 
@@ -169,7 +173,8 @@ def k2_library_ms(fm, boxes, s):
             nchw, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True), 2)
 
-    return cuda_ms(run, 3, warmup=1)
+    with torch.backends.cudnn.flags(enabled=False):
+        return cuda_ms(run, 3, warmup=1)
 
 
 def first_alive(alive, k):
@@ -428,17 +433,17 @@ def hold_k3(fm, boxes, grad, s, exact=False):
     return out
 
 
-def check_k3(device):
+def k3_random_inputs(device):
+    """Check (b)'s float32 map, boxes and cotangents at K3_SHAPE: N(0, 1)
+    values, boxes uniform over the canvas."""
     import numpy as np
     import torch
-    from luminoth_tpu_torch.ops import roi_align
 
     b, r, h, w, c, s = K3_SHAPE
     rng = np.random.default_rng(SEED + 4)
     g = torch.from_numpy(
         rng.standard_normal((b, r, s // 2, s // 2, c)).astype(np.float32)
     ).to(device)
-    fm_cells, boxes_cells, g_cells = k3_on_cell_inputs(device)
     # N(0, 1), not relu'd: exact zero ties would hide routing in (b).
     fm = torch.from_numpy(
         rng.standard_normal((b, h, w, c)).astype(np.float32)).to(device)
@@ -449,6 +454,16 @@ def check_k3(device):
     boxes = torch.from_numpy(np.concatenate(
         [y1 / CANVAS[0], x1 / CANVAS[1], y2 / CANVAS[0], x2 / CANVAS[1]], -1
     ).astype(np.float32)).to(device)
+    return fm, boxes, g
+
+
+def check_k3(device):
+    import torch
+    from luminoth_tpu_torch.ops import roi_align
+
+    s = K3_SHAPE[-1]
+    fm_cells, boxes_cells, g_cells = k3_on_cell_inputs(device)
+    fm, boxes, g = k3_random_inputs(device)
 
     worst, times = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -992,26 +1007,67 @@ def check_train_parity(device):
           total_loss=f"{want[0]['total_loss']:.5f}")
 
 
-def train(device, card):
-    """Full width through ``train.run``: R101, 80 classes, bf16, batch 8,
-    608x800; then a second ``run`` resumes from the checkpoint."""
+def full_train_config(run_name):
+    """[train]'s configuration on fresh synthetic TFRecords, with an empty
+    job directory for ``run_name``; returns (config, job directory)."""
     import shutil
 
-    import torch
-    from luminoth_tpu_torch import train as trainer
-    from luminoth_tpu_torch.ops import nms, roi_align
     from luminoth_tpu_torch.utils.config import get_config
     from luminoth_tpu_torch.utils.synthetic import write_synthetic_records
 
     jobs = os.path.join(BUILD, "jobs")
-    shutil.rmtree(jobs, ignore_errors=True)
+    shutil.rmtree(os.path.join(jobs, run_name), ignore_errors=True)
     data, _ = write_synthetic_records(os.path.join(BUILD, "data"),
                                       TRAIN_IMAGES, 80, SEED + 6)
     config = get_config(train_config(
-        os.path.join(BUILD, "train.yml"), 80, "bfloat16", CANVAS,
-        {"train": {"job_dir": jobs, "run_name": "smoke"},
+        os.path.join(BUILD, f"{run_name}.yml"), 80, "bfloat16", CANVAS,
+        {"train": {"job_dir": jobs, "run_name": run_name},
          "dataset": {"dir": data}},
     ))
+    return config, jobs
+
+
+@contextlib.contextmanager
+def capturing_k3(captured):
+    """Binds K3's wrapper to one that keeps copies of its last launch's
+    inputs in ``captured`` (``[(fm, boxes, grad, s)]``); yields it. The
+    wrapper counts its launches on the name it is bound to: on this one."""
+    from luminoth_tpu_torch.ops import roi_align
+
+    bwd = roi_align.roi_crop_pool_backward_cuda
+
+    def bwd_capture(fm, boxes, grad, s):
+        captured[:] = [(fm.clone(), boxes.clone(), grad.clone(), s)]
+        return bwd(fm, boxes, grad, s)
+
+    bwd_capture.launches = 0
+    roi_align.roi_crop_pool_backward_cuda = bwd_capture
+    try:
+        yield bwd_capture
+    finally:
+        roi_align.roi_crop_pool_backward_cuda = bwd
+
+
+def trained_k3_inputs(device, steps=2):
+    """K3's map, boxes and cotangents at the last of ``steps`` train steps
+    of [train]'s configuration, from a fresh start."""
+    from luminoth_tpu_torch import train as trainer
+
+    config, _ = full_train_config("k3_capture")
+    captured = []
+    with capturing_k3(captured):
+        trainer.run(config, max_steps=steps, device=device)
+    return captured[0]
+
+
+def train(device, card):
+    """Full width through ``train.run``: R101, 80 classes, bf16, batch 8,
+    608x800; then a second ``run`` resumes from the checkpoint."""
+    import torch
+    from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.ops import nms, roi_align
+
+    config, jobs = full_train_config("smoke")
     kernels = {"k1": nms.nms_alive_cuda, "k2": roi_align.roi_crop_pool_cuda,
                "k3": roi_align.roi_crop_pool_backward_cuda}
     for kernel in kernels.values():
@@ -1051,22 +1107,12 @@ def train(device, card):
 
     # Resume, capturing K3's inputs of the last step for [k3-trained].
     captured = []
-    bwd = roi_align.roi_crop_pool_backward_cuda
-
-    def bwd_capture(fm, boxes, grad, s):
-        captured[:] = [(fm.clone(), boxes.clone(), grad.clone(), s)]
-        return bwd(fm, boxes, grad, s)
-
-    # The wrappers count their launches on the name they are bound to.
-    kernels["k3"] = bwd_capture
     for kernel in kernels.values():
         kernel.launches = 0
-    roi_align.roi_crop_pool_backward_cuda = bwd_capture
-    try:
+    with capturing_k3(captured) as bwd_capture:
+        kernels["k3"] = bwd_capture
         resumed = trainer.run(config, max_steps=TRAIN_STEPS + RESUME_STEPS,
                               device=device)
-    finally:
-        roi_align.roi_crop_pool_backward_cuda = bwd
     launches = {k: f.launches for k, f in kernels.items()}
     losses = [h["total_loss"] for h in resumed.history]
     if resumed.step != TRAIN_STEPS + RESUME_STEPS or launches != {
@@ -1088,16 +1134,29 @@ def recheck_k3_on_trained_tensors(captured):
     minibatch are tiny next to (b)'s atol, so they are scaled by a power of
     two (exact in bf16) to a largest magnitude in [1, 2): d_fm is linear in
     them and the routing does not depend on them."""
+    from luminoth_tpu_torch.ops import roi_align
+
     fm, boxes, grad, s = captured
+    scale = unit_scale(grad)
+    out = hold_k3(fm, boxes, grad * scale, s)
+    ms = cuda_ms(lambda: roi_align.roi_crop_pool_backward_cuda(
+        fm, boxes, grad, s), 10, warmup=2)
+    bound_ms, bound_by = k3_bound(fm, boxes, grad)
+    phase("k3-trained", shape="x".join(map(str, fm.shape)),
+          rois=boxes.shape[1], dtype=str(fm.dtype).split(".")[-1],
+          map_max=float(fm.abs().max()), cotangent_scale=scale, **out,
+          kernel_ms=f"{ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+          bound_by=bound_by)
+    return out["max_abs_err"]
+
+
+def unit_scale(grad):
+    """The power of two (exact in bf16) that brings the largest magnitude
+    of the cotangents ``grad`` into [1, 2)."""
     g_max = float(grad.abs().max())
     if not 0 < g_max < math.inf:
         raise AssertionError(f"train-step ROI cotangents of max {g_max}")
-    scale = 2.0 ** -math.floor(math.log2(g_max))
-    out = hold_k3(fm, boxes, grad * scale, s)
-    phase("k3-trained", shape="x".join(map(str, fm.shape)),
-          rois=boxes.shape[1], dtype=str(fm.dtype).split(".")[-1],
-          map_max=float(fm.abs().max()), cotangent_scale=scale, **out)
-    return out["max_abs_err"]
+    return 2.0 ** -math.floor(math.log2(g_max))
 
 
 def main():

@@ -20,7 +20,7 @@ import torch
 from luminoth_tpu_torch import _build
 from luminoth_tpu_torch.ops.dispatch import use_kernel
 
-# Kernel K2 stages up to 2S x 2S taps of 16 bytes in one 52 KB stage.
+# Kernels K2 and K3 stage up to 2S x 2S taps of 16 bytes in shared memory.
 MAX_STAGED_CROP = 28
 
 
@@ -208,10 +208,23 @@ def _check_kernel_args(what, feature_maps, boxes, crop_size, *others):
             f"{tuple(feature_maps.shape)} and {tuple(boxes.shape)}"
         )
     s = int(crop_size)
-    if s < 2 or s > 64 or s % 2:
-        raise ValueError(f"crop_size must be even and in [2, 64], got {s}")
+    if s < 2 or s > MAX_STAGED_CROP or s % 2:
+        raise ValueError(
+            f"{what} takes an even crop_size in [2, {MAX_STAGED_CROP}] (2S "
+            f"x 2S taps are staged in shared memory), got {s}"
+        )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} takes contiguous tensors")
+    # The kernels move 16 bytes of channels at a time.
+    width = 16 // feature_maps.element_size()
+    if feature_maps.shape[-1] % width:
+        raise ValueError(
+            f"{what} takes a channel count that is a multiple of {width} "
+            f"for {feature_maps.dtype} maps, got {feature_maps.shape[-1]}"
+        )
+    maps_and_cotangents = (feature_maps,) + others
+    if any(t.data_ptr() % 16 for t in maps_and_cotangents):
+        raise ValueError(f"{what} takes 16-byte aligned maps and cotangents")
     return s
 
 
@@ -230,20 +243,6 @@ def roi_crop_pool_cuda(feature_maps, boxes, crop_size):
     """
     s = _check_kernel_args("roi_crop_pool_cuda", feature_maps, boxes,
                            crop_size)
-    width = 16 // feature_maps.element_size()
-    if feature_maps.shape[-1] % width:
-        raise ValueError(
-            f"roi_crop_pool_cuda takes a channel count that is a multiple "
-            f"of {width} for {feature_maps.dtype} maps, got "
-            f"{feature_maps.shape[-1]}"
-        )
-    if s > MAX_STAGED_CROP:
-        raise ValueError(
-            f"roi_crop_pool_cuda takes crop_size <= {MAX_STAGED_CROP}, "
-            f"got {s}"
-        )
-    if feature_maps.data_ptr() % 16:
-        raise ValueError("roi_crop_pool_cuda takes 16-byte aligned maps")
     lib = load_library()
     entry = {
         torch.float32: lib.lumi_roi_crop_pool_f32,
@@ -275,6 +274,12 @@ def roi_crop_pool_backward_cuda(feature_maps, boxes, grad, crop_size):
     recomputed with kernel K2's float32 arithmetic, so the routing follows
     K2's output; float32 atomics accumulate in an order that changes from
     run to run.
+
+    It stages an ROI's footprint in shared memory as K2 does and sums each
+    footprint place's gradient on chip before one atomic add, so it takes
+    what K2 takes: a channel count that is a multiple of 8 (bf16) or 4
+    (float32), crops of at most 28, and 16-byte aligned maps and
+    cotangents; it raises on anything else.
     """
     s = _check_kernel_args("roi_crop_pool_backward_cuda", feature_maps,
                            boxes, crop_size, grad)

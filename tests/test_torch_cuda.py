@@ -40,6 +40,35 @@ def first_alive(alive, k):
     return torch.where(first < n, first, -1)
 
 
+def footprint_boxes(rng, kind, b, r, h, w):
+    """(b, r, 4) normalized boxes whose S = 14 footprints are of ``kind``:
+    1 x 1 slots (every sample on the map's last cell), 2 x 2 (every sample
+    on one point inside a cell), 2S x 2S (samples over 2 cells apart) or
+    random.
+
+    The 2 x 2 boxes are points a quarter cell into a cell of a map whose
+    sides less one are powers of two, so the sample coordinates, the tap
+    weights (3/4, 1/4) and the samples are exact: a window's four samples
+    tie exactly, in the kernel and the plain version alike. (Distinct
+    samples a fraction of a cell apart tie within float32 rounding, and
+    the two versions may then route them differently.)"""
+    if kind == "corner":
+        return np.ones((b, r, 4), np.float32)
+    if kind == "tiny":
+        y = (rng.randint(0, h - 2, (b, r)) + 0.25) / (h - 1)
+        x = (rng.randint(0, w - 2, (b, r)) + 0.25) / (w - 1)
+        return np.stack([y, x, y, x], -1).astype(np.float32)
+    if kind == "wide":
+        lo = rng.uniform(0.0, 0.02, (b, r, 2))
+        hi = rng.uniform(0.97, 0.99, (b, r, 2))
+        return np.concatenate([lo, hi], -1).astype(np.float32)
+    y1 = rng.uniform(-0.2, 0.8, (b, r))
+    x1 = rng.uniform(-0.2, 0.8, (b, r))
+    return np.stack([y1, x1, y1 + rng.uniform(0.01, 0.6, (b, r)),
+                     x1 + rng.uniform(0.01, 0.6, (b, r))],
+                    -1).astype(np.float32)
+
+
 class TestNMSKernel:
     @pytest.mark.parametrize("g,n", [(3, 100), (5, 700), (2, 5000)])
     @pytest.mark.parametrize("thr", [0.3, 0.5, 0.7])
@@ -285,3 +314,72 @@ class TestROIBackwardKernel:
                 fm, boxes, g.bfloat16(), 14)
         with pytest.raises(ValueError):
             roi_align.roi_crop_pool_backward_cuda(fm, boxes, g.cpu(), 14)
+
+    # Footprints of 1 x 1 to 28 x 28 slots (and one ROI wholly outside the
+    # map) at channel counts of one slice (one vector) and of many.
+    @pytest.mark.parametrize("kind", ["corner", "tiny", "wide", "random"])
+    @pytest.mark.parametrize("dtype,c", [
+        (torch.float32, 4), (torch.float32, 96), (torch.bfloat16, 8),
+        (torch.bfloat16, 1024),
+    ])
+    def test_footprints_and_slices(self, rng, device, kind, dtype, c):
+        h, w = 33, 33
+        boxes = footprint_boxes(rng, kind, 2, 9, h, w)
+        boxes[0, 0] = [-2.0, -2.0, -1.0, -1.0]
+        fm = torch.from_numpy(rng.randn(2, h, w, c).astype(np.float32))
+        g = torch.from_numpy(rng.randn(2, 9, 7, 7, c).astype(np.float32))
+        fm, g = fm.to(device, dtype), g.to(device, dtype)
+        boxes = torch.from_numpy(boxes).to(device)
+        got = roi_align.roi_crop_pool_backward_cuda(fm, boxes, g, 14)
+        want = roi_align.roi_crop_pool_backward_reference(fm, boxes, g, 14)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+    # S = 28: footprints up to 56 x 56 slots, the launch's widest stage.
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_widest_crop(self, rng, device, dtype):
+        fm = torch.from_numpy(rng.randn(2, 64, 64, 16).astype(np.float32))
+        boxes = footprint_boxes(rng, "wide", 2, 3, 64, 64)
+        g = torch.from_numpy(rng.randn(2, 3, 14, 14, 16).astype(np.float32))
+        fm, g = fm.to(device, dtype), g.to(device, dtype)
+        boxes = torch.from_numpy(boxes).to(device)
+        got = roi_align.roi_crop_pool_backward_cuda(fm, boxes, g, 28)
+        want = roi_align.roi_crop_pool_backward_reference(fm, boxes, g, 28)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_stacked_rois_contend(self, rng, device, dtype):
+        # Every ROI of both images on one box: all blocks of an image add
+        # into the same slots of d_fm at once.
+        fm, _ = self._inputs(rng, device, c=256)
+        boxes = torch.tensor([[[0.2, 0.3, 0.45, 0.5]] * 300] * 2,
+                             device=device)
+        g = self._grad(rng, device, boxes, c=256)
+        fm, g = fm.to(dtype), g.to(dtype)
+        got = roi_align.roi_crop_pool_backward_cuda(fm, boxes, g, 14)
+        want = roi_align.roi_crop_pool_backward_reference(fm, boxes, g, 14)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 100),
+                                         (torch.float32, 98)])
+    def test_rejects_channels_off_the_vector_width(self, rng, device, dtype,
+                                                   c):
+        fm, boxes = self._inputs(rng, device, c=c)
+        g = self._grad(rng, device, boxes, c=c)
+        with pytest.raises(ValueError, match="multiple of"):
+            roi_align.roi_crop_pool_backward_cuda(fm.to(dtype), boxes,
+                                                  g.to(dtype), 14)
+
+    def test_rejects_crops_over_28(self, rng, device):
+        fm, boxes = self._inputs(rng, device)
+        g = self._grad(rng, device, boxes, s=30)
+        with pytest.raises(ValueError, match="crop_size"):
+            roi_align.roi_crop_pool_backward_cuda(fm, boxes, g, 30)
+
+    def test_rejects_unaligned_cotangents(self, rng, device):
+        fm, boxes = self._inputs(rng, device)
+        g = self._grad(rng, device, boxes)
+        flat = torch.zeros(g.numel() + 1, device=device)
+        shifted = flat[1:].view(g.shape)  # contiguous, 4 bytes off 16
+        shifted.copy_(g)
+        with pytest.raises(ValueError, match="aligned"):
+            roi_align.roi_crop_pool_backward_cuda(fm, boxes, shifted, 14)
