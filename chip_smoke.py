@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, eval and predict/serve
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -13,7 +14,12 @@ ResNet-101 v1, 80 classes, bf16, a 608x800 canvas, random weights from a
 seed), then trains that model through ``train.run`` on synthetic
 TFRecords (batch 8), resumes from its checkpoint, and holds the ROI
 backward kernel against its plain version on a train step's own tensors
-and times it there.
+and times it there. Then it uses that checkpoint as a user would: ``lumi
+eval``'s ``evaluate_once`` over 36 synthetic val images (holding the
+uncapped per-class NMS launch against its plain version), eval on the card
+against the CPU at a small size, the ``predict`` command against
+``Detector.predict``, ``PredictorNetwork``'s single-image latency, and the
+web server with its micro-batcher under concurrent requests.
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, ...}``.
@@ -59,6 +65,7 @@ TRAIN_UPDATE_RTOL, TRAIN_UPDATE_ATOL = 1e-3, 1e-6
 TRAIN_STEPS, RESUME_STEPS = 6, 2  # full-width train phase, then a resume
 TRAIN_IMAGES = 16  # synthetic 480x640 JPEGs, 2-6 boxes each
 CANVAS = (608, 800)
+SMALL_CANVAS = (160, 224)  # [parity] and [eval-parity]
 BATCH = 8
 # The least time the card could take (bound_ms): bytes over the memory rate
 # or float32 operations over the rate outside the tensor cores, whichever
@@ -70,6 +77,15 @@ K2_OPS = 39  # per pooled output: 4 samples x (6 mul + 3 add), 3 max
 # K3 per pooled output: K2's 39, 9 to count ties and scale the cotangent,
 # 12 to route it through one maximal sample's 4 taps.
 K3_OPS = 60
+EVAL_IMAGES = 36  # [eval]: 4 batches of 8 and a final 4, padded to 8
+# [eval-parity]: 5 images at batch 2, card against CPU: AP/AR atol, losses
+# relative.
+EVAL_PARITY_IMAGES, EVAL_PARITY_BATCH = 5, 2
+EVAL_AP_ATOL, EVAL_LOSS_RTOL = 1e-6, 1e-5
+PREDICT_IMAGES = 4
+PREDICT_BOX_ATOL = 1e-3  # px, the predict command against Detector.predict
+SERVE_CALLS = 20  # [serve-latency], as bench.py::bench_serving
+WEB_REQUESTS, WEB_ROUNDS = 8, 3  # [web]: rounds of concurrent requests
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(HERE, "build", "chip_smoke")
 
@@ -522,8 +538,10 @@ def serve_config(architecture, classes, dtype, canvas, budgets=None):
     return path
 
 
-def check_small_parity(device):
-    """The served path (kernels) against the plain versions, f32, small."""
+def small_parity_model():
+    """[parity]'s small f32 config (R101, 80 classes, 160x224, small RPN
+    budgets), its random weights with rescaled classifiers, two images, and
+    ``forward(device)`` of the model on them."""
     import numpy as np
     import torch
     from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
@@ -534,13 +552,13 @@ def check_small_parity(device):
     )
 
     config = get_config(serve_config(
-        "resnet_v1_101", 80, "float32", (160, 224),
+        "resnet_v1_101", 80, "float32", SMALL_CANVAS,
         budgets={"rpn": {"pre_nms_top_n": 400, "post_nms_top_n": 50}},
     ))
     variables = init_variables(config, SEED)
     images = torch.from_numpy(
-        (np.random.default_rng(SEED).random((2, 160, 224, 3)) * 255)
-        .astype(np.float32)
+        (np.random.default_rng(SEED).random((2,) + SMALL_CANVAS + (3,))
+         * 255).astype(np.float32)
     )
 
     def forward(device_):
@@ -561,7 +579,14 @@ def check_small_parity(device):
         rcnn["cls_score"].std())
     params["rcnn"]["fc_bbox"]["kernel"] *= 0.5 / float(
         rcnn["bbox_offsets"].std())
+    return config, variables, forward
 
+
+def check_small_parity(device):
+    """The served path (kernels) against the plain versions, f32, small."""
+    import torch
+
+    _, _, forward = small_parity_model()
     want = forward("cpu")["classification_prediction"]
     got = forward(device)["classification_prediction"]
     valid = want["valid"]
@@ -1150,6 +1175,372 @@ def recheck_k3_on_trained_tensors(captured):
     return out["max_abs_err"]
 
 
+def checkpoint_config(name, proposals=None):
+    """The config a user would write to evaluate or serve [train]'s
+    checkpoint (``jobs/smoke``), as YAML under ``build/``: the model of
+    ``bench_eval`` and ``bench_serving`` (``bench.py:704-772``,
+    ``:338-396``): R101, 80 classes, bf16, 600-800 resize onto the 608x800
+    canvas, uint8 transfer; random-ish weights give no class 0.5, so the
+    score floor is 0."""
+    return train_config(
+        os.path.join(BUILD, f"{name}.yml"), 80, "bfloat16", CANVAS, {
+            "train": {"job_dir": os.path.join(BUILD, "jobs"),
+                      "run_name": "smoke"},
+            "dataset": {"dir": os.path.join(BUILD, "data"),
+                        "transfer_dtype": "uint8",
+                        "image_preprocessing": {
+                            "min_size": 600, "max_size": 800,
+                            "canvas_height": CANVAS[0],
+                            "canvas_width": CANVAS[1]}},
+            "model": {"rcnn": {"proposals": {"min_prob_threshold": 0.0,
+                                             **(proposals or {})}}},
+        })
+
+
+def path_launches():
+    """Set K1's and K2's launch counts to 0; returns a function that reads
+    them."""
+    from luminoth_tpu_torch.ops import nms, roi_align
+
+    nms.nms_alive_cuda.launches = roi_align.roi_crop_pool_cuda.launches = 0
+    return lambda: {"k1": nms.nms_alive_cuda.launches,
+                    "k2": roi_align.roi_crop_pool_cuda.launches}
+
+
+def check_forwards(name, launches, forwards):
+    """Each forward launches K1 twice (RPN, per class) and K2 once."""
+    if forwards < 1 or launches != {"k1": 2 * forwards, "k2": forwards}:
+        raise AssertionError(
+            f"[{name}] kernels not on the path: {launches} over {forwards} "
+            f"forwards (want K1 2 and K2 1 per forward)")
+
+
+def eval_phase(device, card):
+    """[eval]: ``lumi eval``'s path on [train]'s checkpoint, loaded as the
+    command loads it, over 36 synthetic val images (4 batches of 8 and a
+    final batch of 4 padded to 8), after a one-batch warm-up. Holds the
+    uncapped per-class K1 launch (G=640, N=2000) of the last forward
+    against its plain version on its own tensors."""
+    import torch
+    from luminoth_tpu_torch import eval as evaluator
+    from luminoth_tpu_torch.models import get_model
+    from luminoth_tpu_torch.ops import nms, roi_align
+    from luminoth_tpu_torch.utils.checkpoint_io import load_model_weights
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.predicting import (
+        load_checkpoint_variables,
+        model_dtype,
+    )
+    from luminoth_tpu_torch.utils.synthetic import write_synthetic_records
+
+    write_synthetic_records(os.path.join(BUILD, "data"), EVAL_IMAGES, 80,
+                            SEED + 7, split="val")
+    config = evaluator.apply_eval_config_mutations(
+        get_config(checkpoint_config("eval")), "val")
+    model = get_model(config.model.type)(config, dtype=model_dtype(config))
+    load_model_weights(model.to(device), load_checkpoint_variables(config))
+    evaluator.evaluate_once(config, model, max_batches=1)  # warm-up
+
+    kernel = nms.nms_alive_cuda
+    shapes, per_class = [], []
+
+    def k1_capture(boxes, valid, thr, keep=0):
+        shapes.append((boxes.shape[0], boxes.shape[1], keep))
+        if boxes.shape[0] > BATCH:  # per class
+            per_class[:] = [(boxes.clone(), valid.clone(), thr, keep)]
+        return kernel(boxes, valid, thr, keep)
+
+    # The wrapper counts its launches on the name it is bound to.
+    k1_capture.launches = roi_align.roi_crop_pool_cuda.launches = 0
+    nms.nms_alive_cuda = k1_capture
+    try:
+        metrics = evaluator.evaluate_once(config, model)
+    finally:
+        nms.nms_alive_cuda = kernel
+    launches = {"k1": k1_capture.launches,
+                "k2": roi_align.roi_crop_pool_cuda.launches}
+    batches = math.ceil(EVAL_IMAGES / BATCH)
+    check_forwards("eval", launches, batches)
+    rpn, classes = config.model.rpn.proposals, config.model.network
+    want_shapes = [  # RPN: B x top 12000, keep 2000; per class uncapped
+        (BATCH, rpn.pre_nms_top_n, rpn.post_nms_top_n),
+        (BATCH * classes.num_classes, rpn.post_nms_top_n,
+         config.model.rcnn.proposals.class_max_detections),
+    ] * batches
+    if shapes != want_shapes:
+        raise AssertionError(f"[eval] K1 launched at {shapes}")
+    if metrics["images"] != EVAL_IMAGES or not all(
+        math.isfinite(v) for v in metrics.values()
+    ):
+        raise AssertionError(f"[eval] metrics {metrics}")
+
+    boxes, valid, thr, keep = per_class[0]
+    got = first_alive(kernel(boxes, valid, thr, keep), keep)
+    want = first_alive(nms.nms_alive_reference(boxes, valid, thr), keep)
+    if not torch.equal(got, want):
+        raise AssertionError("K1 disagrees on the eval forward's per-class "
+                             "tensors")
+    k1_ms = cuda_ms(lambda: kernel(boxes, valid, thr, keep), 20, warmup=3)
+    phase("eval", model="resnet_v1_101", classes=80, dtype="bfloat16",
+          canvas=f"{CANVAS[0]}x{CANVAS[1]}", batch=BATCH,
+          images=metrics["images"], batches=batches,
+          k1_launches=launches["k1"], k2_launches=launches["k2"],
+          k1_per_class=f"{boxes.shape[0]}x{boxes.shape[1]}",
+          images_per_s=f"{metrics['images_per_second']:.2f}",
+          forward_device_ms=f"{metrics['forward_device_ms']:.2f}",
+          ap50=f"{metrics['AP@0.5']:.6f}",
+          ap=f"{metrics['AP@[0.5:0.95]']:.6f}",
+          ar=f"{metrics['AR@[0.5:0.95]']:.6f}",
+          losses="/".join(f"{k.split('/')[1]}={v:.4f}"
+                          for k, v in sorted(metrics.items())
+                          if k.startswith("losses/")),
+          card=f"'{card}'")
+    phase("k1-eval", groups=boxes.shape[0], candidates=boxes.shape[1],
+          threshold=thr, keep=keep, equal=True,
+          survivors=int(got.ge(0).sum()), kernel_ms=f"{k1_ms:.4f}")
+    return launches
+
+
+def check_eval_parity(device):
+    """[eval-parity]: ``evaluate_once`` on the card (kernels) and on the
+    CPU (plain versions) with [parity]'s small f32 model and weights, over
+    5 synthetic 120x168 val images at batch 2 (the last batch padded)."""
+    from luminoth_tpu_torch import eval as evaluator
+    from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
+    from luminoth_tpu_torch.utils.synthetic import write_synthetic_records
+    from luminoth_tpu_torch.utils.weights import load_flax_variables
+
+    config, variables, _ = small_parity_model()
+    data, _ = write_synthetic_records(
+        os.path.join(BUILD, "data_small"), EVAL_PARITY_IMAGES, 80, SEED + 8,
+        height=120, width=168, split="val")
+    config.dataset.dir = data
+    config.dataset.image_preprocessing.min_size = SMALL_CANVAS[0]
+    config.dataset.image_preprocessing.max_size = SMALL_CANVAS[1]
+    config.train.batch_size = EVAL_PARITY_BATCH
+    evaluator.apply_eval_config_mutations(config, "val")
+    got, want = (
+        evaluator.evaluate_once(
+            config, load_flax_variables(FasterRCNN(config), variables)
+            .to(on))
+        for on in (device, "cpu"))
+    ap_err = max(abs(got[k] - want[k]) for k in
+                 ("AP@0.5", "AP@0.75", "AP@[0.5:0.95]", "AR@[0.5:0.95]"))
+    losses = sorted(k for k in want if k.startswith("losses/"))
+    loss_err = max(abs(got[k] - want[k]) / abs(want[k]) for k in losses)
+    if (got["images"] != EVAL_PARITY_IMAGES
+            or want["images"] != EVAL_PARITY_IMAGES
+            or not ap_err <= EVAL_AP_ATOL or not loss_err <= EVAL_LOSS_RTOL
+            or sorted(k for k in got if k.startswith("losses/")) != losses):
+        raise AssertionError(
+            f"[eval-parity] card {got} against the CPU's {want}")
+    phase("eval-parity", model="resnet_v1_101", dtype="float32",
+          images=got["images"], batch=EVAL_PARITY_BATCH,
+          ap_ar_max_abs_err=ap_err, loss_max_rel_err=f"{loss_err:.2e}",
+          total_loss=f"{want['losses/total_loss']:.5f}")
+
+
+def predict_phase(device):
+    """[predict]: the ``predict`` command in process on 4 JPEGs with
+    [train]'s checkpoint, against ``Detector.predict`` on the same
+    images."""
+    import numpy as np
+    from click.testing import CliRunner
+    from PIL import Image
+    from luminoth_tpu_torch import Detector
+    from luminoth_tpu_torch import predict as predictor
+    from luminoth_tpu_torch.io import read_image
+
+    path = checkpoint_config("predict", {"total_max_detections": 100})
+    rng = np.random.default_rng(SEED + 9)
+    folder = os.path.join(BUILD, "predict")
+    os.makedirs(folder, exist_ok=True)
+    files = []
+    for i in range(PREDICT_IMAGES):
+        files.append(os.path.join(folder, f"img{i}.jpg"))
+        Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+                        ).save(files[-1], quality=90)
+    out = os.path.join(BUILD, "predict.jsonl")
+    read = path_launches()
+    result = CliRunner().invoke(predictor.predict, [
+        *files, "-c", path, "--min-prob", "0", "--max-detections", "100",
+        "--batch-size", str(PREDICT_IMAGES), "--device", str(device),
+        "-f", out])
+    launches = read()
+    if result.exit_code != 0:
+        raise AssertionError(f"[predict] exit {result.exit_code}: "
+                             f"{result.output}") from result.exception
+    check_forwards("predict", launches, 1)
+    with open(out) as f:
+        lines = [json.loads(line) for line in f]
+    want = Detector(config=path, device=device, prob=0.0).predict(
+        [read_image(p) for p in files])
+    box_err = 0.0
+    for line, path_, objects in zip(lines, files, want):
+        got = line["objects"]
+        if line["file"] != path_ or not got or (
+            [o["label"] for o in got] != [o["label"] for o in objects]
+            or [o["prob"] for o in got] != [o["prob"] for o in objects]
+        ):
+            raise AssertionError(f"[predict] {path_}: labels or probs differ "
+                                 f"from Detector.predict")
+        box_err = max(box_err, float(np.abs(
+            np.asarray([o["bbox"] for o in got])
+            - np.asarray([o["bbox"] for o in objects])).max()))
+    if len(lines) != len(files) or not box_err <= PREDICT_BOX_ATOL:
+        raise AssertionError(f"[predict] {len(lines)} lines, box max err "
+                             f"{box_err}")
+    phase("predict", files=len(lines),
+          detections=sum(len(line["objects"]) for line in lines),
+          k1_launches=launches["k1"], k2_launches=launches["k2"],
+          labels_equal=True, probs_equal=True, box_max_err_px=box_err)
+    return launches
+
+
+def percentiles(seconds):
+    """(p50, p90) in ms, as ``bench.py::bench_serving`` takes them."""
+    ordered = sorted(seconds)
+    return (1000 * ordered[len(ordered) // 2],
+            1000 * ordered[int(len(ordered) * 0.9)])
+
+
+def serve_latency(device, card):
+    """[serve-latency]: ``PredictorNetwork`` from [train]'s checkpoint on
+    one uint8 480x640 image, ``SERVE_CALLS`` calls after a warm-up, as
+    ``bench.py::bench_serving`` does."""
+    import numpy as np
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.predicting import PredictorNetwork
+
+    network = PredictorNetwork(get_config(checkpoint_config("serve")),
+                               device=device)
+    image = np.random.default_rng(SEED + 10).integers(
+        0, 256, (480, 640, 3), dtype=np.uint8)
+    network.predict_image(image)  # warm-up
+    read = path_launches()
+    seconds = []
+    for _ in range(SERVE_CALLS):
+        t = time.perf_counter()
+        objects = network.predict_image(image)
+        seconds.append(time.perf_counter() - t)
+    launches = read()
+    check_forwards("serve-latency", launches, SERVE_CALLS)
+    if not 0 < len(objects) <= 300:
+        raise AssertionError(f"[serve-latency] {len(objects)} detections")
+    p50, p90 = percentiles(seconds)
+    phase("serve-latency", calls=SERVE_CALLS, image="480x640",
+          transfer="uint8", k1_launches=launches["k1"],
+          k2_launches=launches["k2"], p50_ms=f"{p50:.2f}",
+          p90_ms=f"{p90:.2f}", card=f"'{card}'")
+    return launches
+
+
+def web_phase(device, card):
+    """[web]: ``run_server`` on 127.0.0.1 with batches of up to 8 serving
+    [train]'s checkpoint; ``WEB_ROUNDS`` rounds of 8 concurrent multipart
+    POSTs. Each answer must equal ``Detector.predict`` on the batch its
+    image rode in (batch size picks cuDNN's algorithms), and the batcher
+    must have coalesced each round into fewer than 8 forwards."""
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+    from luminoth_tpu_torch import Detector
+    from luminoth_tpu_torch.tools.server import web
+    from luminoth_tpu_torch.utils.config import get_config
+
+    path = checkpoint_config("serve")
+    rng = np.random.default_rng(SEED + 11)
+    bodies = []
+    for _ in range(WEB_REQUESTS):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+                        ).save(buf, "JPEG", quality=90)
+        bodies.append(buf.getvalue())
+    images = [np.asarray(Image.open(io.BytesIO(b)).convert("RGB"))
+              for b in bodies]
+
+    httpd = web.run_server(get_config(path), host="127.0.0.1", port=0,
+                           block=False, batch_size=BATCH, device=device)
+    try:
+        if not httpd.state.ready.wait(600) or httpd.state.network is None:
+            raise AssertionError(f"[web] model not loaded: "
+                                 f"{httpd.state.error}")
+        predictor = httpd.state.network._network
+        for n in (1, 2, 4, 8):  # each batch size picks its own algorithms
+            predictor.predict_batch(images[:n], pad_to=n)
+        groups, batch_seconds = [], []  # each forward's images and time
+        predict_batch = predictor.predict_batch
+
+        def recording(batch, pad_to=None):
+            groups.append(list(batch))
+            t = time.perf_counter()
+            out = predict_batch(batch, pad_to=pad_to)
+            batch_seconds.append(time.perf_counter() - t)
+            return out
+
+        predictor.predict_batch = recording
+        url = (f"http://127.0.0.1:{httpd.server_address[1]}"
+               f"/api/fasterrcnn/predict/")
+        boundary = "smokeboundary"
+        answers, seconds, forwards = {}, [], []
+
+        def post(i):
+            body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                    f'name="image"; filename="{i}.jpg"\r\n'
+                    f"Content-Type: image/jpeg\r\n\r\n").encode()
+            body += bodies[i] + f"\r\n--{boundary}--\r\n".encode()
+            request = urllib.request.Request(url, data=body, headers={
+                "Content-Type": f"multipart/form-data; boundary={boundary}"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(request, timeout=300) as response:
+                answers[i] = json.load(response)["objects"]
+            seconds.append(time.perf_counter() - t)
+
+        read = path_launches()
+        rounds = []  # (answers by request, its forwards' image groups)
+        for _ in range(WEB_ROUNDS):
+            before = len(groups)
+            threads = [threading.Thread(target=post, args=(i,))
+                       for i in range(WEB_REQUESTS)]
+            for thread in threads:
+                thread.start()
+            for thread in threads:
+                thread.join(timeout=300)
+            forwards.append(len(groups) - before)
+            if len(answers) != WEB_REQUESTS or forwards[-1] >= WEB_REQUESTS:
+                raise AssertionError(
+                    f"[web] {len(answers)} answers in {forwards[-1]} "
+                    f"forwards")
+            rounds.append((dict(answers), groups[before:]))
+            answers.clear()
+        launches = read()
+    finally:
+        web.stop_server(httpd)
+    check_forwards("web", launches, len(groups))
+    detector = Detector(config=path, device=device, prob=0.0)
+    for got, round_groups in rounds:
+        want = {}
+        for group in round_groups:
+            for image, objects in zip(group, detector.predict(group)):
+                want[next(i for i in range(WEB_REQUESTS)
+                          if np.array_equal(images[i], image))] = objects
+        if got != want or not all(got.values()):
+            raise AssertionError("[web] answers differ from Detector.predict")
+    p50, p90 = percentiles(seconds)
+    phase("web", requests=WEB_ROUNDS * WEB_REQUESTS, rounds=WEB_ROUNDS,
+          forwards_per_round="/".join(map(str, forwards)),
+          batch_sizes="/".join(str(len(g)) for g in groups),
+          predict_batch_ms="/".join(f"{1000 * t:.1f}"
+                                    for t in batch_seconds),
+          k1_launches=launches["k1"], k2_launches=launches["k2"],
+          answers_equal=True, p50_ms=f"{p50:.2f}", p90_ms=f"{p90:.2f}",
+          card=f"'{card}'")
+    return launches
+
+
 def unit_scale(grad):
     """The power of two (exact in bf16) that brings the largest magnitude
     of the cotangents ``grad`` into [1, 2)."""
@@ -1209,29 +1600,40 @@ def main():
     check_train_parity(device)
     trained, captured = train(device, card)
     k3_err = max(k3_err, recheck_k3_on_trained_tensors(captured))
+    del captured
+    torch.cuda.empty_cache()
+    paths = {"serve": served, "train": trained,
+             "eval": eval_phase(device, card)}
+    check_eval_parity(device)
+    paths["predict"] = predict_phase(device)
+    paths["serve_latency"] = serve_latency(device, card)
+    paths["web"] = web_phase(device, card)
 
     rpn_ms, rpn_plain_ms, rpn_bound_ms, rpn_bound_by = k1_times[(8, 12000)]
     k3_ms, k3_plain_ms, k3_bound_ms, k3_bound_by = k3_times["bfloat16"]
+    def by_path(kernel):
+        return {name: counts.get(kernel, 0) for name, counts in paths.items()}
+
     print(json.dumps({"kernels": [
         {"name": "nms_alive", "route": "cuda",
          "source": "luminoth_tpu_torch/csrc/nms.cu",
          "replaces": "luminoth_tpu/ops/pallas/nms_kernel.py:181",
-         "launches": served["k1"] + trained["k1"],
-         "launches_by_path": {"serve": served["k1"], "train": trained["k1"]},
+         "launches": sum(by_path("k1").values()),
+         "launches_by_path": by_path("k1"),
          "max_abs_err": k1_err, "ms": rpn_ms, "plain_ms": rpn_plain_ms,
          "bound_ms": rpn_bound_ms, "bound_by": rpn_bound_by,
          "library_ms": None},
         {"name": "roi_crop_pool", "route": "cuda",
          "source": "luminoth_tpu_torch/csrc/roi_align.cu",
          "replaces": "luminoth_tpu/ops/pallas/roi_align_kernel.py:351",
-         "launches": served["k2"] + trained["k2"],
-         "launches_by_path": {"serve": served["k2"], "train": trained["k2"]},
+         "launches": sum(by_path("k2").values()),
+         "launches_by_path": by_path("k2"),
          "max_abs_err": k2_err, **k2},
         {"name": "roi_crop_pool_backward", "route": "cuda",
          "source": "luminoth_tpu_torch/csrc/roi_align.cu",
          "replaces": "luminoth_tpu/ops/pallas/roi_align_kernel.py:189",
          "launches": trained["k3"],
-         "launches_by_path": {"serve": 0, "train": trained["k3"]},
+         "launches_by_path": by_path("k3"),
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound_ms, "bound_by": k3_bound_by,
          "library_ms": None},

@@ -1,9 +1,10 @@
 """luminoth_tpu_torch — the PyTorch/CUDA port of luminoth_tpu.
 
-Faster R-CNN (ResNet v1 trunk) serving and training on an NVIDIA GPU, held
-against the JAX package ``luminoth_tpu`` (the reference, which it never
-imports: the host code it needs, from config resolution to the dataset
-readers, is copied here). The TPU Pallas kernels are hand-written CUDA C++
+Faster R-CNN (ResNet v1 trunk) serving, training, evaluation and the
+predict/serve tools (``python -m luminoth_tpu_torch``) on an NVIDIA GPU,
+held against the JAX package ``luminoth_tpu`` (the reference, which it
+never imports: the host code it needs, from config resolution to the
+dataset readers, is copied here). The TPU Pallas kernels are hand-written CUDA C++
 here (``csrc/``), built by ``nvcc`` at first use.
 Imports are lazy so ``import luminoth_tpu_torch`` stays cheap.
 """

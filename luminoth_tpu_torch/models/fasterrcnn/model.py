@@ -96,10 +96,14 @@ class FasterRCNN(nn.Module):
         if priorities is not None:
             return tuple(p.to(device) for p in priorities[stage])
         if generator is None:
-            # No generator: a fixed draw per stage, like the JAX model's
-            # fallback key when it has no "target" rng.
-            generator = torch.Generator(device=device)
+            # No generator (eval with targets): a fixed draw per stage, like
+            # the JAX model's fallback key when it has no "target" rng. It
+            # is drawn on the CPU, whose stream differs from CUDA's, so the
+            # eval losses do not depend on the device.
+            generator = torch.Generator()
             generator.manual_seed(("rpn", "rcnn").index(stage))
+            return tuple(p.to(device) for p in
+                         draw_priorities(shape, generator, "cpu"))
         return draw_priorities(shape, generator, device)
 
     def forward(self, images, gt_boxes=None, im_shape=None, generator=None,

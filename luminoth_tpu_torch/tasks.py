@@ -2,14 +2,19 @@
 
 Counterpart of the JAX package's ``tasks.py``, with the same ``predict``
 output format: a list of ``{"bbox": [x1, y1, x2, y2], "label": ...,
-"prob": ...}``. Checkpoint-zoo loading is not ported yet, so a
-``Detector`` is built from a config and flax-layout ``variables``.
+"prob": ...}``. A ``Detector`` is built from a config, with flax-layout
+``variables`` or the newest training checkpoint under the config's
+``train.job_dir``. Checkpoint-zoo loading (``checkpoint=``) is not ported
+yet.
 """
 
 import numpy as np
 
 from luminoth_tpu_torch.utils.config import get_config
-from luminoth_tpu_torch.utils.predicting import PredictorNetwork
+from luminoth_tpu_torch.utils.predicting import (
+    ZOO_NOT_PORTED,
+    PredictorNetwork,
+)
 
 
 class Detector:
@@ -23,7 +28,9 @@ class Detector:
             config: path (or list of paths) to YAML config(s).
             prob: default probability threshold for predictions.
             classes: iterable of class labels to keep by default.
-            variables: flax-layout weights (see ``utils/weights.py``).
+            variables: flax-layout weights (see ``utils/weights.py``);
+                None loads the newest checkpoint under the config's
+                ``train.job_dir``.
             device: torch device; None means the current CUDA device.
         """
         if checkpoint is not None and config is not None:
@@ -31,10 +38,7 @@ class Detector:
                 "Only one of `checkpoint` or `config` must be specified."
             )
         if config is None:
-            raise NotImplementedError(
-                "checkpoint-zoo loading is not ported to PyTorch yet: pass "
-                "config= and variables="
-            )
+            raise NotImplementedError(ZOO_NOT_PORTED)
         self._config = get_config(config)
         self.prob = prob
         self.classes = set(classes) if classes else None

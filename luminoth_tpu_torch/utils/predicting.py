@@ -7,10 +7,16 @@ device when they travel as uint8, and run through one forward. The output
 format is the JAX harness's: per image, a list of ``{bbox, label, prob}``
 sorted by probability, boxes in the original image's coordinates.
 
+Weights come from ``variables`` or, without them, from the newest
+training checkpoint under ``train.job_dir`` (the port's ``.pt`` or the JAX
+package's ``.msgpack``, see :func:`load_checkpoint_variables`).
+
 Not ported (they work around XLA compilation or the TPU mesh): the AOT
 executable cache, the persistent compile cache and the device mesh.
-Checkpoint loading is not ported yet either: pass ``variables``.
 """
+
+import logging
+import os
 
 import numpy as np
 import torch
@@ -21,6 +27,10 @@ from luminoth_tpu_torch.datasets.object_detection_dataset import (
     preprocess_image,
 )
 from luminoth_tpu_torch.models import get_model
+from luminoth_tpu_torch.utils.checkpoint_io import (
+    CheckpointManager,
+    load_model_weights,
+)
 from luminoth_tpu_torch.utils.image import (
     compose_scale,
     fit_to_canvas,
@@ -28,7 +38,14 @@ from luminoth_tpu_torch.utils.image import (
 )
 from luminoth_tpu_torch.utils.weights import load_flax_variables
 
+logger = logging.getLogger(__name__)
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ZOO_NOT_PORTED = (
+    "the checkpoint zoo (a checkpoint id or alias, and the default "
+    "'accurate') is not ported to PyTorch yet: pass a config, whose "
+    "train.job_dir holds the checkpoint"
+)
 
 
 def model_dtype(config):
@@ -59,6 +76,29 @@ def resolve_device(device):
     return torch.device(device)
 
 
+def load_checkpoint_variables(config):
+    """The state of the newest readable training checkpoint, for
+    :func:`~luminoth_tpu_torch.utils.checkpoint_io.load_model_weights`.
+
+    Searches, in order, ``job_dir/run_name/ckpt``, ``job_dir/ckpt`` and
+    ``job_dir`` itself, as the JAX package's predictor does; reads the
+    port's ``.pt`` and the JAX package's ``.msgpack`` files.
+    """
+    job_dir = config.train.get("job_dir", "jobs/")
+    run_name = config.train.get("run_name") or "default"
+    for ckpt_dir in (os.path.join(job_dir, run_name, "ckpt"),
+                     os.path.join(job_dir, "ckpt"), job_dir):
+        if not os.path.isdir(ckpt_dir):
+            continue
+        # Falls back to an older checkpoint if the newest is unreadable.
+        state, step = CheckpointManager(ckpt_dir).latest_state_dict()
+        if state is not None:
+            logger.info("Restored checkpoint at step %d from %s", step,
+                        ckpt_dir)
+            return state
+    raise FileNotFoundError(f"no checkpoint found under {job_dir}")
+
+
 class PredictorNetwork:
     """Loads a model and its weights on a device and predicts objects."""
 
@@ -69,20 +109,19 @@ class PredictorNetwork:
             config: resolved model config (``utils.config.get_config``).
             variables: flax-layout weights (nested ``{params,
                 batch_stats}``, flat ``"params/<path>"`` keys, or an
-                ``.npz`` path) carried over by ``utils.weights``.
+                ``.npz`` path) carried over by ``utils.weights``; None
+                loads the newest checkpoint under ``train.job_dir``.
             class_labels: optional label names, indexed by class id.
             device: torch device; None means the current CUDA device.
         """
-        if variables is None:
-            raise NotImplementedError(
-                "checkpoint loading is not ported to PyTorch yet: pass "
-                "variables= (flax-layout weights)"
-            )
         self.device = resolve_device(device)
         self._config = config
         self._canvas = canvas_shape(config)
         model = get_model(config.model.type)(config, dtype=model_dtype(config))
-        load_flax_variables(model, variables)
+        if variables is None:
+            load_model_weights(model, load_checkpoint_variables(config))
+        else:
+            load_flax_variables(model, variables)
         self._model = model.to(self.device).eval()
         self.class_labels = class_labels
         transfer = str(config.dataset.get("transfer_dtype", "float32"))

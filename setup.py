@@ -12,7 +12,7 @@ setup(
         "luminoth_tpu": ["models/*/base_config.yml", "native/*.c",
                          "tools/server/templates/*", "tools/server/static/*"],
         "luminoth_tpu_torch": ["csrc/*.cu", "models/*/base_config.yml",
-                               "native/*.c"],
+                               "native/*.c", "tools/server/templates/*"],
     },
     install_requires=[
         "jax",

@@ -383,3 +383,199 @@ class TestROIBackwardKernel:
         shifted.copy_(g)
         with pytest.raises(ValueError, match="aligned"):
             roi_align.roi_crop_pool_backward_cuda(fm, boxes, shifted, 14)
+
+
+# ------------------------------------------------- eval and serving paths
+
+SMALL = {  # the small configuration of tests/test_torch_eval.py
+    "train": {"batch_size": 2, "run_name": "small"},
+    "dataset": {"image_preprocessing": {
+        "min_size": 96, "max_size": 128,
+        "canvas_height": 96, "canvas_width": 128,
+    }},
+    "model": {
+        "type": "fasterrcnn",
+        "network": {"num_classes": 3},
+        "base_network": {"architecture": "resnet_v1_50"},
+        "rpn": {"proposals": {"pre_nms_top_n": 128, "post_nms_top_n": 32}},
+        "rcnn": {"proposals": {"total_max_detections": 10,
+                               "class_max_detections": 8,
+                               "min_prob_threshold": 0.0}},
+    },
+}
+
+
+def write_small_config(tmp_path, config=SMALL, images=5, height=72,
+                       width=96):
+    """A config file over ``images`` synthetic val records, its job_dir
+    under ``tmp_path``; returns its path."""
+    import yaml
+
+    from luminoth_tpu_torch.utils.synthetic import write_synthetic_records
+
+    classes = config["model"]["network"]["num_classes"]
+    data, _ = write_synthetic_records(str(tmp_path / "data"), images,
+                                      classes, 7, height=height,
+                                      width=width, split="val")
+    body = {**config,
+            "train": {**config["train"], "job_dir": str(tmp_path / "jobs")},
+            "dataset": {**config["dataset"], "dir": data}}
+    path = tmp_path / "config.yml"
+    path.write_text(yaml.safe_dump(body))
+    return str(path)
+
+
+def rescaled_model(config):
+    """The port's model with random weights, its classifiers rescaled to
+    unsaturated logits (as in tests/test_torch_slice.py), on the CPU."""
+    from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
+    from luminoth_tpu_torch.utils.weights import (
+        init_variables,
+        load_flax_variables,
+    )
+
+    canvas = (config.dataset.image_preprocessing.canvas_height,
+              config.dataset.image_preprocessing.canvas_width)
+    variables = init_variables(config, seed=0)
+    images = torch.rand((2,) + canvas + (3,),
+                        generator=torch.Generator().manual_seed(0)) * 255
+
+    def forward():
+        model = load_flax_variables(FasterRCNN(config), variables).eval()
+        with torch.inference_mode():
+            return model(images)
+
+    params = variables["params"]
+    params["rpn"]["cls_conv"]["kernel"] *= 3.0 / float(
+        forward()["rpn_prediction"]["rpn_cls_score"].std())
+    rcnn = forward()["classification_prediction"]["rcnn"]
+    params["rcnn"]["fc_classifier"]["kernel"] *= 3.0 / float(
+        rcnn["cls_score"].std())
+    params["rcnn"]["fc_bbox"]["kernel"] *= 0.5 / float(
+        rcnn["bbox_offsets"].std())
+    return load_flax_variables(FasterRCNN(config), variables)
+
+
+class TestEvalAndServing:
+    def test_eval_on_the_card_equals_the_cpu(self, tmp_path, device):
+        import copy
+
+        from luminoth_tpu_torch import eval as evaluator
+        from luminoth_tpu_torch.utils.config import get_config
+
+        config = evaluator.apply_eval_config_mutations(
+            get_config(write_small_config(tmp_path)), "val")
+        model = rescaled_model(config)
+        want = evaluator.evaluate_once(config, model)
+        # Full float32 on the card: TF32 convs and matmuls would round
+        # the inputs to 10 mantissa bits.
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            got = evaluator.evaluate_once(config,
+                                          copy.deepcopy(model).to(device))
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+        assert got["images"] == want["images"] == 5
+        assert got["forward_device_ms"] > 0
+        for key in ("AP@0.5", "AP@0.75", "AP@[0.5:0.95]", "AR@[0.5:0.95]"):
+            assert abs(got[key] - want[key]) <= 1e-6, key
+        losses = [k for k in want if k.startswith("losses/")]
+        assert losses
+        for key in losses:
+            assert abs(got[key] - want[key]) <= 1e-5 * abs(want[key]), (
+                key, got[key], want[key])
+
+    def test_k1_on_an_eval_forwards_per_class_tensors(self, tmp_path,
+                                                      device):
+        """The uncapped per-class NMS of eval: K1 at G = 8 x 80 = 640
+        groups of N = 2000 candidates, against its plain version."""
+        from luminoth_tpu_torch import eval as evaluator
+        from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
+        from luminoth_tpu_torch.utils.config import get_config
+        from luminoth_tpu_torch.utils.weights import (
+            init_variables,
+            load_flax_variables,
+        )
+
+        full = {**SMALL,
+                "train": {**SMALL["train"], "batch_size": 8},
+                "dataset": {"image_preprocessing": {
+                    "min_size": 600, "max_size": 800,
+                    "canvas_height": 608, "canvas_width": 800}},
+                "model": {"type": "fasterrcnn",
+                          "network": {"num_classes": 80},
+                          "base_network": {"architecture": "resnet_v1_50"}}}
+        config = evaluator.apply_eval_config_mutations(get_config(
+            write_small_config(tmp_path, full, images=8, height=480,
+                               width=640)), "val")
+        model = load_flax_variables(FasterRCNN(config),
+                                    init_variables(config, 0)).to(device)
+        kernel, captured = nms.nms_alive_cuda, []
+
+        def capture(boxes, valid, thr, keep=0):
+            captured.append((boxes.clone(), valid.clone(), thr, keep))
+            return kernel(boxes, valid, thr, keep)
+
+        capture.launches = 0
+        nms.nms_alive_cuda = capture
+        try:
+            metrics = evaluator.evaluate_once(config, model)
+        finally:
+            nms.nms_alive_cuda = kernel
+        assert metrics["images"] == 8 and capture.launches == 2
+        boxes, valid, thr, keep = captured[1]
+        assert (tuple(boxes.shape), thr, keep) == ((640, 2000, 4), 0.5, 100)
+        assert int(valid.sum()) > 0
+        got = first_alive(kernel(boxes, valid, thr, keep), keep)
+        want = first_alive(nms.nms_alive_reference(boxes, valid, thr), keep)
+        assert torch.equal(got, want)
+
+    def test_a_web_request_served_from_the_card(self, tmp_path, device):
+        import io
+        import json
+        import urllib.request
+
+        from PIL import Image
+
+        from luminoth_tpu_torch.tasks import Detector
+        from luminoth_tpu_torch.tools.server import web
+        from luminoth_tpu_torch.utils.checkpoint_io import CheckpointManager
+        from luminoth_tpu_torch.utils.config import get_config
+
+        path = write_small_config(tmp_path, images=1)
+        config = get_config(path)
+        CheckpointManager(str(tmp_path / "jobs" / "small" / "ckpt")).save(
+            {"step": 1, "model": rescaled_model(config).state_dict()}, 1)
+        buf = io.BytesIO()
+        Image.fromarray(np.random.RandomState(0).randint(
+            0, 256, (90, 120, 3)).astype(np.uint8)).save(buf, "JPEG")
+        httpd = web.run_server(config, port=0, block=False, device=device)
+        try:
+            assert httpd.state.ready.wait(300) and httpd.state.network
+            request = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}"
+                f"/api/fasterrcnn/predict/", data=buf.getvalue())
+            with urllib.request.urlopen(request, timeout=300) as response:
+                objects = json.load(response)["objects"]
+        finally:
+            web.stop_server(httpd)
+        image = np.asarray(Image.open(io.BytesIO(buf.getvalue()))
+                           .convert("RGB"))
+        want = Detector(config=path, device=device, prob=0.0).predict(image)
+        assert objects == want and len(want) > 0
+
+    def test_fallback_draw_is_the_cpus(self, device):
+        from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
+
+        model = FasterRCNN.__new__(FasterRCNN)
+        for stage in ("rpn", "rcnn"):
+            got = FasterRCNN._priorities(model, stage, (2, 50), None, None,
+                                         device)
+            want = FasterRCNN._priorities(model, stage, (2, 50), None, None,
+                                          torch.device("cpu"))
+            for g, w in zip(got, want):
+                assert g.is_cuda and torch.equal(g.cpu(), w)

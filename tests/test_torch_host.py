@@ -3,7 +3,8 @@
 ``luminoth_tpu_torch`` keeps its own copy of every host module it uses
 (config resolution, image preprocessing, the TFRecord and SequenceExample
 codecs with their native C helpers, the dataset readers and the
-multi-process loader). Each case runs the same inputs, made from a seed
+multi-process loader, the numpy box geometry of eval, image reading and
+drawing, the web page). Each case runs the same inputs, made from a seed
 with numpy, through the JAX package's module and the port's copy, and
 asserts that the results are equal: these are copies, so no tolerance.
 """
@@ -17,18 +18,25 @@ import yaml
 from PIL import Image
 
 import luminoth_tpu
+from luminoth_tpu import io as jax_io
+from luminoth_tpu import vis as jax_vis
 from luminoth_tpu.datasets import ObjectDetectionDataset as JaxDataset
 from luminoth_tpu.datasets import object_detection_dataset as jax_odd
 from luminoth_tpu.formats import crc32c as jax_crc
 from luminoth_tpu.formats import example_pb as jax_pb
 from luminoth_tpu.formats import native_example as jax_native
 from luminoth_tpu.formats import tfrecord as jax_tfrecord
+from luminoth_tpu.ops import np_boxes as jax_np_boxes
 from luminoth_tpu.utils import config as jax_config
 from luminoth_tpu.utils import image as jax_image
+import luminoth_tpu_torch
+from luminoth_tpu_torch import io as port_io
+from luminoth_tpu_torch import vis
 from luminoth_tpu_torch.datasets import ObjectDetectionDataset
 from luminoth_tpu_torch.datasets import object_detection_dataset as odd
 from luminoth_tpu_torch.formats import crc32c, example_pb, native_example
 from luminoth_tpu_torch.formats import tfrecord
+from luminoth_tpu_torch.ops import np_boxes
 from luminoth_tpu_torch.utils import config
 from luminoth_tpu_torch.utils import image
 
@@ -298,3 +306,46 @@ class TestDataset:
                                                   err_msg=key)
                 else:
                     assert got_batch[key] == value, key
+
+
+class TestEvalAndServingHost:
+    @pytest.mark.parametrize("name", ["bbox_overlap", "clip_boxes",
+                                      "encode", "decode", "nms", "unmap"])
+    def test_np_boxes_equal(self, name):
+        rng = np.random.default_rng(5)
+        xy = rng.uniform(-10, 100, (30, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(1, 60, (30, 2))], 1)
+        other = boxes[::-1] * 1.1 + rng.normal(0, 5, (30, 1))
+        args = {
+            "bbox_overlap": (boxes, other[:7]),
+            "clip_boxes": (boxes, (64, 80)),
+            "encode": (boxes, other, [0.1, 0.2]),
+            "decode": (boxes, rng.normal(0, 0.3, boxes.shape)),
+            "nms": (boxes, rng.uniform(size=30), 0.4),
+            "unmap": (boxes[:5], 30, [3, 1, 9, 12, 29], -1),
+        }[name]
+        got = getattr(np_boxes, name)(*args)
+        want = getattr(jax_np_boxes, name)(*args)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+    def test_read_image_and_vis_objects_equal(self, tmp_path):
+        rng = np.random.default_rng(6)
+        path = tmp_path / "a.png"
+        Image.fromarray(rng.integers(0, 256, (40, 50, 4), dtype=np.uint8),
+                        "RGBA").save(path)
+        image = port_io.read_image(str(path))
+        np.testing.assert_array_equal(image, jax_io.read_image(str(path)))
+        objects = [{"bbox": [3, 4, 30, 25], "label": "cat", "prob": 0.91},
+                   {"bbox": [10.4, 2.6, 44.5, 39], "label": 2}]
+        for kwargs in ({}, {"fill": True, "scale": 2}, {"labels": False}):
+            np.testing.assert_array_equal(
+                np.asarray(vis.vis_objects(image, objects, **kwargs)),
+                np.asarray(jax_vis.vis_objects(image, objects, **kwargs)))
+
+    def test_web_page_equal(self):
+        page = "tools/server/templates/index.html"
+        with open(os.path.join(luminoth_tpu_torch.__path__[0], page),
+                  "rb") as got, open(os.path.join(luminoth_tpu.__path__[0],
+                                                  page), "rb") as want:
+            assert got.read() == want.read()

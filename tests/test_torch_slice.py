@@ -16,6 +16,7 @@ init.
 probabilities to 1e-5.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -34,6 +35,7 @@ from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
 from luminoth_tpu_torch.tasks import Detector
 from luminoth_tpu_torch.utils import config as torch_config
 from luminoth_tpu_torch.utils import predicting
+from luminoth_tpu_torch.utils.checkpoint_io import CheckpointManager
 from luminoth_tpu_torch.utils.weights import (
     flatten_variables,
     init_variables,
@@ -213,11 +215,28 @@ class TestPredictor:
         with pytest.raises(RuntimeError, match="CUDA"):
             predicting.PredictorNetwork(config, variables)
 
-    def test_checkpoint_loading_not_ported(self, config):
-        with pytest.raises(NotImplementedError):
-            predicting.PredictorNetwork(config, device="cpu")
-        with pytest.raises(NotImplementedError):
+    def test_checkpoint_loading_not_ported(self):
+        """The checkpoint zoo is not ported: a zoo checkpoint, or no config
+        (the zoo's default), raises."""
+        with pytest.raises(NotImplementedError, match="zoo"):
             Detector(checkpoint="accurate")
+        with pytest.raises(NotImplementedError, match="zoo"):
+            Detector()
+
+    def test_predictor_loads_the_newest_checkpoint(self, config, variables,
+                                                   tmp_path):
+        """Without variables, the predictor loads the newest checkpoint
+        under ``train.job_dir`` (here a ``.pt`` in ``job_dir/ckpt``)."""
+        model = load_flax_variables(FasterRCNN(config), variables)
+        CheckpointManager(str(tmp_path / "ckpt")).save(
+            {"step": 3, "model": model.state_dict()}, 3)
+        loaded = copy.deepcopy(config)
+        loaded.train.job_dir = str(tmp_path)
+        images = self._images()
+        assert predicting.PredictorNetwork(
+            loaded, device="cpu").predict_batch(images) == (
+            predicting.PredictorNetwork(config, variables, device="cpu")
+            .predict_batch(images))
 
 
 class TestPackage:
@@ -230,7 +249,8 @@ class TestPackage:
 
     def test_imports_neither_jax_nor_flax(self):
         # Every module of the port, its trainer and every module that
-        # chip_smoke.py imports: none may load the JAX package or JAX.
+        # chip_smoke.py imports: none may load the JAX package, JAX or
+        # msgpack (the port reads msgpack checkpoints with its own reader).
         code = (
             "import ast, importlib, pkgutil, sys\n"
             "import luminoth_tpu_torch as pkg\n"
@@ -246,7 +266,8 @@ class TestPackage:
             "        importlib.import_module(node.module)\n"
             "bad = sorted(n for n in sys.modules\n"
             "             if n.split('.')[0] in ('luminoth_tpu', 'jax',\n"
-            "                                    'jaxlib', 'flax', 'optax'))\n"
+            "                                    'jaxlib', 'flax', 'optax',\n"
+            "                                    'msgpack'))\n"
             "print(bad)\n"
         )
         env = dict(os.environ, PYTHONPATH=REPO)
