@@ -19,7 +19,13 @@ eval``'s ``evaluate_once`` over 36 synthetic val images (holding the
 uncapped per-class NMS launch against its plain version), eval on the card
 against the CPU at a small size, the ``predict`` command against
 ``Detector.predict``, ``PredictorNetwork``'s single-image latency, and the
-web server with its micro-batcher under concurrent requests.
+web server with its micro-batcher under concurrent requests. Then SSD
+(truncated VGG-16, 300x300, 20 classes, random weights from the seed):
+its forward and detection paths on the card against the CPU at a small
+size, serving at batches 32 and 128 (bf16) with the grouped NMS held
+against its plain version on each forward's own tensors, ``train.run`` at
+batch 32 (no kernel launched), and ``evaluate_once`` on that checkpoint
+(the per-class NMS held the same way).
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, ...}``.
@@ -86,6 +92,25 @@ PREDICT_IMAGES = 4
 PREDICT_BOX_ATOL = 1e-3  # px, the predict command against Detector.predict
 SERVE_CALLS = 20  # [serve-latency], as bench.py::bench_serving
 WEB_REQUESTS, WEB_ROUNDS = 8, 3  # [web]: rounds of concurrent requests
+# SSD (truncated VGG-16, 300x300, 8096 anchors): K1 at its launch shapes,
+# (groups, candidates, IoU threshold, survivors read, class-shifted boxes):
+# the fused per-image path at serving batches 32 and 128, the per-class
+# path at eval batch 8 and at batch 32, 20 classes.
+K1_SSD_SHAPES = (
+    (32, 1000, 0.45, 100, True),
+    (128, 1000, 0.45, 100, True),
+    (160, 1000, 0.45, 100, False),
+    (640, 1000, 0.45, 100, False),
+)
+SSD_CLASSES, SSD_SIZE = 20, 300
+SSD_SERVE_BATCHES = (32, 128)
+SSD_TRAIN_BATCH, SSD_TRAIN_STEPS, SSD_TRAIN_IMAGES = 32, 5, 64
+SSD_EVAL_IMAGES, SSD_EVAL_BATCH = 20, 8  # 2 batches of 8, a final 4 padded
+# [ssd-parity]: 3 classes, f32, batch 2, card against CPU: the losses
+# relative; every anchor's class logits and box offsets, absolute; the
+# detection stage on the card's head outputs, boxes in px.
+SSD_LOSS_RTOL, SSD_HEAD_ATOL, SSD_BOX_ATOL = 1e-5, 1e-4, 1e-4
+SSD_LOGIT_STD = 3.0  # [ssd-serve]: class logits rescaled to this std
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(HERE, "build", "chip_smoke")
 
@@ -1541,6 +1566,477 @@ def web_phase(device, card):
     return launches
 
 
+def ssd_config(name, classes, dtype, train=None, dataset=None):
+    """An SSD config a user would write (the base config's model, 300x300),
+    as YAML under ``build/``."""
+    import yaml
+
+    config = {
+        "model": {"type": "ssd", "compute_dtype": dtype,
+                  "network": {"num_classes": classes}},
+        "train": {"seed": SEED, "log_every_steps": 1, **(train or {})},
+        "dataset": dict(dataset or {}),
+    }
+    os.makedirs(BUILD, exist_ok=True)
+    path = os.path.join(BUILD, f"{name}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def check_k1_ssd(device):
+    """K1 at SSD's launch shapes against its plain version: the fused
+    path's class-shifted boxes (up to 19e4 + 300: widths and areas are
+    differences of large numbers) and the per-class groups."""
+    import numpy as np
+    import torch
+    from luminoth_tpu_torch.ops import nms
+
+    times = {}
+    for g, n, thr, keep, shifted in K1_SSD_SHAPES:
+        rng = np.random.default_rng(SEED + g)
+        xy = rng.uniform(0, SSD_SIZE - 8, (g, n, 2))
+        wh = rng.uniform(8, SSD_SIZE / 2, (g, n, 2))
+        boxes = np.concatenate([xy, np.minimum(xy + wh, SSD_SIZE - 1)], -1)
+        boxes = boxes.astype(np.float32)
+        if shifted:
+            boxes += (rng.integers(0, SSD_CLASSES, (g, n, 1)) * 1e4).astype(
+                np.float32)
+        valid = np.arange(n)[None, :] < rng.integers(n // 2, n + 1, (g, 1))
+        boxes = torch.from_numpy(boxes).to(device)
+        valid = torch.from_numpy(valid).to(device)
+        got = first_alive(nms.nms_alive_cuda(boxes, valid, thr, keep), keep)
+        plain = nms.nms_alive_reference(boxes, valid, thr)
+        if not torch.equal(got, first_alive(plain, keep)):
+            raise AssertionError(
+                f"K1 disagrees with its plain version at SSD's (G={g}, "
+                f"N={n}, shifted={shifted})")
+        bound_ms, bound_by = k1_bound(boxes, valid, plain, keep)
+        ms = cuda_ms(lambda: nms.nms_alive_cuda(boxes, valid, thr, keep), 20,
+                     warmup=3)
+        plain_ms = cuda_ms(lambda: nms.nms_alive_reference(boxes, valid, thr),
+                           3)
+        times[(g, n)] = (ms, plain_ms, bound_ms, bound_by)
+        phase("k1-ssd", groups=g, candidates=n, threshold=thr, keep=keep,
+              class_shifted=shifted, equal=True,
+              survivors=int(got.ge(0).sum()), kernel_ms=f"{ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+              bound_by=bound_by)
+    return times
+
+
+@contextlib.contextmanager
+def capturing_k1(captured):
+    """Binds K1's wrapper to one that keeps copies of each launch's inputs
+    in ``captured``; yields it (it counts its launches)."""
+    from luminoth_tpu_torch.ops import nms
+
+    kernel = nms.nms_alive_cuda
+
+    def k1_capture(boxes, valid, thr, keep=0):
+        captured.append((boxes.clone(), valid.clone(), thr, keep))
+        return kernel(boxes, valid, thr, keep)
+
+    k1_capture.launches = 0
+    nms.nms_alive_cuda = k1_capture
+    try:
+        yield k1_capture
+    finally:
+        nms.nms_alive_cuda = kernel
+
+
+@contextlib.contextmanager
+def counting_k2_k3(counts):
+    """Sets K2's and K3's launch counts to 0 for the block and adds what
+    they launched in it to ``counts["k2"]`` and ``counts["k3"]``."""
+    from luminoth_tpu_torch.ops import roi_align
+
+    kernels = {"k2": roi_align.roi_crop_pool_cuda,
+               "k3": roi_align.roi_crop_pool_backward_cuda}
+    for kernel in kernels.values():
+        kernel.launches = 0
+    yield
+    for name, kernel in kernels.items():
+        counts[name] = counts.get(name, 0) + kernel.launches
+
+
+def no_k2_k3(name, counts):
+    """Raises unless the SSD path ``name`` launched neither K2 nor K3."""
+    if counts["k2"] or counts["k3"]:
+        raise AssertionError(f"[{name}] launched K2 {counts['k2']} and K3 "
+                             f"{counts['k3']} times")
+
+
+def valid_per_group(captured):
+    """'least/mean/most' valid candidates per group over the captured K1
+    launches."""
+    import torch
+
+    valid = torch.cat([c[1].sum(-1) for c in captured]).float()
+    return (f"{int(valid.min())}/{float(valid.mean()):.1f}/"
+            f"{int(valid.max())}")
+
+
+def hold_k1(captured, name):
+    """Each captured K1 launch against the plain version, exactly; returns
+    (kernel ms, plain ms, bound ms, bound by) of the last one."""
+    import torch
+    from luminoth_tpu_torch.ops import nms
+
+    for boxes, valid, thr, keep in captured:
+        got = first_alive(nms.nms_alive_cuda(boxes, valid, thr, keep), keep)
+        plain = nms.nms_alive_reference(boxes, valid, thr)
+        if not torch.equal(got, first_alive(plain, keep)):
+            raise AssertionError(f"[{name}] K1 disagrees with its plain "
+                                 f"version on {tuple(boxes.shape)}")
+    boxes, valid, thr, keep = captured[-1]
+    return (cuda_ms(lambda: nms.nms_alive_cuda(boxes, valid, thr, keep), 20,
+                    warmup=3),
+            cuda_ms(lambda: nms.nms_alive_reference(boxes, valid, thr), 3),
+            *k1_bound(boxes, valid, plain, keep))
+
+
+def check_ssd_parity(device):
+    """[ssd-parity]: SSD, 3 classes, f32 (TF32 is off), batch 2, the same
+    weights (``flax_variables_from_torch``) on the card and on the CPU:
+    the losses; then both detection paths on the card (K1) and on the CPU
+    (the plain version), fed the card's head outputs."""
+    import numpy as np
+    import torch
+    from luminoth_tpu_torch.models.ssd import SSD
+    from luminoth_tpu_torch.models.ssd.proposal import ssd_proposal
+    from luminoth_tpu_torch.ops import nms
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.weights import (
+        flax_variables_from_torch,
+        init_variables,
+        load_flax_variables,
+    )
+
+    config = get_config(ssd_config("ssd_parity", 3, "float32"))
+    variables = flax_variables_from_torch(
+        load_flax_variables(SSD(config), init_variables(config, SEED)))
+    rng = np.random.default_rng(SEED + 11)
+    images = torch.from_numpy(
+        (rng.random((2, SSD_SIZE, SSD_SIZE, 3)) * 255).astype(np.float32))
+    gt = torch.from_numpy(random_gt(rng, 2, [3, 1], SSD_SIZE, SSD_SIZE, 3, 4))
+    outs, losses = {}, {}
+    for on in ("cpu", device):
+        model = load_flax_variables(SSD(config), variables).to(on).eval()
+        with torch.inference_mode():
+            outs[on] = model(images.to(on), gt_boxes=gt.to(on))
+            losses[on] = {k: float(v) for k, v in
+                          model.loss(outs[on], return_all=True).items()}
+    loss_err = max(abs(losses[device][k] - v) / abs(v)
+                   for k, v in losses["cpu"].items())
+    head_err = max(float((outs[device][k].cpu() - outs["cpu"][k]).abs().max())
+                   for k in ("cls_pred", "loc_pred"))
+    if not loss_err <= SSD_LOSS_RTOL:
+        raise AssertionError(f"[ssd-parity] losses {losses}")
+    if not head_err <= SSD_HEAD_ATOL:
+        raise AssertionError(f"[ssd-parity] head outputs differ by {head_err}")
+
+    got = outs[device]
+    probs = torch.softmax(got["cls_pred"], -1)
+    p_cfg = config.model.proposals
+    numbers = {}
+    for path, min_prob in (("fused", 0.5), ("per_class", 0.0)):
+        args = (3, float(p_cfg.class_nms_threshold),
+                int(p_cfg.class_max_detections),
+                int(p_cfg.total_max_detections), min_prob,
+                tuple(config.model.variances))
+        nms.nms_alive_cuda.launches = 0
+        card = ssd_proposal(probs, got["loc_pred"], got["anchors"],
+                            (SSD_SIZE, SSD_SIZE), *args)
+        launches = nms.nms_alive_cuda.launches
+        cpu = ssd_proposal(probs.cpu(), got["loc_pred"].cpu(),
+                           got["anchors"].cpu(), (SSD_SIZE, SSD_SIZE), *args)
+        valid = cpu["valid"]
+        same = (launches == 1 and int(valid.sum()) > 0
+                and torch.equal(card["valid"].cpu(), valid)
+                and all(torch.equal(card[k].cpu()[valid], cpu[k][valid])
+                        for k in ("labels", "probs")))
+        box_err = float((card["objects"].cpu() - cpu["objects"])[valid]
+                        .abs().max())
+        if not same or not box_err <= SSD_BOX_ATOL:
+            raise AssertionError(
+                f"[ssd-parity] {path}: K1 launches {launches}, valid/labels/"
+                f"probs equal={same}, box max err {box_err} px")
+        numbers[f"{path}_detections"] = int(valid.sum())
+        numbers[f"{path}_box_max_err_px"] = box_err
+    phase("ssd-parity", model="ssd_vgg16", classes=3, dtype="float32",
+          images=f"2x{SSD_SIZE}x{SSD_SIZE}", tf32=False,
+          loss_max_rel_err=f"{loss_err:.2e}", head_max_abs_err=head_err,
+          **numbers)
+
+
+def rescaled_ssd_variables(config, device):
+    """Random SSD weights from the seed, the class heads rescaled so the
+    logits have a std of ``SSD_LOGIT_STD``: at random init no class
+    reaches 0.5, and the fused path would get no candidate."""
+    import numpy as np
+    import torch
+    from luminoth_tpu_torch.models.ssd import SSD
+    from luminoth_tpu_torch.utils.predicting import model_dtype
+    from luminoth_tpu_torch.utils.weights import (
+        init_variables,
+        load_flax_variables,
+    )
+
+    variables = init_variables(config, SEED)
+    model = load_flax_variables(SSD(config, dtype=model_dtype(config)),
+                                variables).to(device).eval()
+    images = torch.from_numpy(np.random.default_rng(SEED + 12).integers(
+        0, 256, (8, SSD_SIZE, SSD_SIZE, 3), dtype=np.uint8)).to(device)
+    with torch.inference_mode():
+        scale = SSD_LOGIT_STD / float(model(images.float())["cls_pred"].std())
+    for i in range(len(model.anchors_per_point)):
+        variables["params"][f"MultiBox_{i}_classes_conv"]["kernel"] *= scale
+    return variables
+
+
+def check_detections(name, results, classes, cap, floor):
+    """Per image: at most ``cap`` detections sorted by probability, finite
+    boxes, labels in range, probabilities in [floor, 1]; returns the
+    count."""
+    import numpy as np
+
+    count = 0
+    for objects in results:
+        probs = [o["prob"] for o in objects]
+        if len(objects) > cap or probs != sorted(probs, reverse=True):
+            raise AssertionError(f"[{name}] {len(objects)} detections "
+                                 f"(cap {cap}), or not sorted by "
+                                 f"probability")
+        for o in objects:
+            box = np.asarray(o["bbox"], np.float64)
+            if not (box.shape == (4,) and np.isfinite(box).all()
+                    and 0 <= o["label"] < classes
+                    and floor - 1e-4 <= o["prob"] <= 1.0):
+                raise AssertionError(f"[{name}] malformed detection {o}")
+        count += len(objects)
+    return count
+
+
+def ssd_serve(device, card):
+    """[ssd-serve]: ``PredictorNetwork`` from an SSD config (the base
+    config's fused detection path: min_prob 0.5, 100 per image), bf16, 20
+    classes, uint8 transfer, batches of 32 and 128 375x500 images in one
+    forward each, after a warm-up; K1 once per forward at G = B, N = 1000,
+    each launch held against the plain version on its own tensors. Then
+    ``Detector.predict`` on one image. K2 and K3 must not launch. Returns
+    the K1, K2 and K3 launches of the measured forwards and K1's times per
+    batch."""
+    import numpy as np
+    import torch
+    from luminoth_tpu_torch import Detector
+    from luminoth_tpu_torch.ops import nms
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.predicting import PredictorNetwork
+
+    path = ssd_config("ssd_serve", SSD_CLASSES, "bfloat16",
+                      dataset={"transfer_dtype": "uint8"})
+    config = get_config(path)
+    t0 = time.perf_counter()
+    variables = rescaled_ssd_variables(config, device)
+    network = PredictorNetwork(config, variables=variables, device=device)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 13)
+    launches, counts, k1_times = 0, {}, {}
+    for batch in SSD_SERVE_BATCHES:
+        images = [rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+                  for _ in range(batch)]
+        network.predict_batch(images)  # warm-up
+        captured = []
+        with capturing_k1(captured) as k1, counting_k2_k3(counts):
+            t = time.perf_counter()
+            results = network.predict_batch(images)
+            request_s = time.perf_counter() - t
+        shapes = [tuple(c[0].shape[:2]) + (c[3],) for c in captured]
+        if k1.launches != 1 or shapes != [(batch, 1000, 100)]:
+            raise AssertionError(f"[ssd-serve] b{batch}: K1 launched "
+                                 f"{k1.launches} times at {shapes}")
+        launches += k1.launches
+        detections = check_detections("ssd-serve", results, SSD_CLASSES,
+                                      100, 0.5)
+        if detections == 0:
+            raise AssertionError(f"[ssd-serve] b{batch}: no detection")
+        k1_times[batch] = hold_k1(captured, "ssd-serve")
+        uploaded = torch.from_numpy(rng.integers(
+            0, 256, (batch, SSD_SIZE, SSD_SIZE, 3), dtype=np.uint8)).to(device)
+        im_shape = torch.tensor([[SSD_SIZE, SSD_SIZE]] * batch,
+                                dtype=torch.float32, device=device)
+        torch.cuda.reset_peak_memory_stats()
+        forward_ms = cuda_ms(lambda: network.forward(uploaded, im_shape), 5,
+                             warmup=1)
+        k1_ms, k1_plain_ms, k1_bound_ms, _ = k1_times[batch]
+        phase("ssd-serve", model="ssd_vgg16", classes=SSD_CLASSES,
+              dtype="bfloat16", canvas=f"{SSD_SIZE}x{SSD_SIZE}", batch=batch,
+              transfer="uint8", k1_launches=k1.launches,
+              k1_shape=f"{batch}x1000", k1_equal=True,
+              k1_valid_per_group=valid_per_group(captured),
+              detections=detections,
+              forward_ms=f"{forward_ms:.2f}",
+              images_per_s=f"{1000 * batch / forward_ms:.2f}",
+              request_ms=f"{1000 * request_s:.1f}",
+              request_images_per_s=f"{batch / request_s:.2f}",
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.1f}",
+              k1_ms=f"{k1_ms:.4f}", k1_plain_ms=f"{k1_plain_ms:.4f}",
+              k1_bound_ms=f"{k1_bound_ms:.4f}", setup_s=f"{setup_s:.1f}",
+              card=f"'{card}'")
+    detector = Detector(config=path, variables=variables, device=device,
+                        prob=0.0)
+    nms.nms_alive_cuda.launches = 0
+    with counting_k2_k3(counts):
+        objects = detector.predict(rng.integers(0, 256, (480, 640, 3),
+                                                dtype=np.uint8))
+    check_detections("ssd-serve", [objects], SSD_CLASSES, 100, 0.5)
+    launches += nms.nms_alive_cuda.launches
+    if nms.nms_alive_cuda.launches != 1:
+        raise AssertionError("[ssd-serve] Detector.predict: K1 launched "
+                             f"{nms.nms_alive_cuda.launches} times")
+    no_k2_k3("ssd-serve", counts)
+    return {"k1": launches, **counts}, k1_times
+
+
+def ssd_train(device, card):
+    """[ssd-train]: ``train.run`` with an SSD config (20 classes, bf16,
+    the base config's training defaults and augmentations), batch 32, on
+    64 synthetic 300x300 JPEG records, ``SSD_TRAIN_STEPS`` steps: finite
+    losses, no kernel launched, a ``.pt`` checkpoint; then 5 further steps
+    back to back on one uploaded batch."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.ops import nms, roi_align
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.synthetic import write_synthetic_records
+
+    jobs = os.path.join(BUILD, "jobs")
+    shutil.rmtree(os.path.join(jobs, "ssd"), ignore_errors=True)
+    data, _ = write_synthetic_records(
+        os.path.join(BUILD, "data_ssd"), SSD_TRAIN_IMAGES, SSD_CLASSES,
+        SEED + 14, height=SSD_SIZE, width=SSD_SIZE)
+    config = get_config(ssd_config(
+        "ssd_train", SSD_CLASSES, "bfloat16",
+        train={"batch_size": SSD_TRAIN_BATCH, "job_dir": jobs,
+               "run_name": "ssd"},
+        dataset={"dir": data}))
+    kernels = {"k1": nms.nms_alive_cuda, "k2": roi_align.roi_crop_pool_cuda,
+               "k3": roi_align.roi_crop_pool_backward_cuda}
+    for kernel in kernels.values():
+        kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.run(config, max_steps=SSD_TRAIN_STEPS, device=device)
+    wall_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in kernels.items()}
+    losses = [h["total_loss"] for h in state.history]
+    ckpt = os.path.join(jobs, "ssd", "ckpt", f"ckpt_step_{SSD_TRAIN_STEPS}.pt")
+    if (state.step != SSD_TRAIN_STEPS or any(launches.values())
+            or len(losses) != SSD_TRAIN_STEPS
+            or not all(map(math.isfinite, losses))
+            or not os.path.exists(ckpt)):
+        raise AssertionError(
+            f"[ssd-train] {state.step} steps, launches {launches}, losses "
+            f"{losses}, checkpoint {os.path.exists(ckpt)}")
+    steady = [h["device_ms"] for h in state.history[1:]]
+    step_ms = sum(steady) / len(steady)
+    # Further steps back to back on one uploaded batch, without the loader:
+    # the step's device time alone.
+    rng = np.random.default_rng(SEED + 16)
+    batch = {
+        "image": torch.from_numpy(rng.integers(
+            0, 256, (SSD_TRAIN_BATCH, SSD_SIZE, SSD_SIZE, 3),
+            dtype=np.uint8)).to(device),
+        "gt_boxes": torch.from_numpy(random_gt(
+            rng, SSD_TRAIN_BATCH, 4, SSD_SIZE, SSD_SIZE, SSD_CLASSES,
+            8)).to(device),
+    }
+    step = trainer.make_train_step(state.model, state.optimizer)
+    b2b_ms = cuda_ms(lambda: step(batch, state.step, None), 5, warmup=1)
+    phase("ssd-train", model="ssd_vgg16", classes=SSD_CLASSES,
+          dtype="bfloat16", canvas=f"{SSD_SIZE}x{SSD_SIZE}",
+          batch=SSD_TRAIN_BATCH, steps=state.step,
+          k1_launches=launches["k1"], k2_launches=launches["k2"],
+          k3_launches=launches["k3"],
+          losses="/".join(f"{v:.4f}" for v in losses),
+          step_device_ms="/".join(f"{h['device_ms']:.1f}"
+                                  for h in state.history),
+          steady_step_ms=f"{step_ms:.2f}",
+          images_per_s=f"{1000 * SSD_TRAIN_BATCH / step_ms:.2f}",
+          back_to_back_step_ms=f"{b2b_ms:.2f}",
+          back_to_back_images_per_s=f"{1000 * SSD_TRAIN_BATCH / b2b_ms:.2f}",
+          wall_s=f"{wall_s:.1f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.1f}",
+          card=f"'{card}'")
+    return launches
+
+
+def ssd_eval(device, card):
+    """[ssd-eval]: ``evaluate_once`` on [ssd-train]'s checkpoint, loaded as
+    ``lumi eval`` loads it, over 20 synthetic val images at batch 8 (the
+    last batch 4 real and 4 padded), after a one-batch warm-up. The eval
+    mutations (min_prob 0) take the per-class path: K1 once per batch at
+    G = 8 x 20 = 160, N = 1000, each launch held exactly; K2 and K3 must
+    not launch."""
+    from luminoth_tpu_torch import eval as evaluator
+    from luminoth_tpu_torch.models import get_model
+    from luminoth_tpu_torch.utils.checkpoint_io import load_model_weights
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.predicting import (
+        load_checkpoint_variables,
+        model_dtype,
+    )
+    from luminoth_tpu_torch.utils.synthetic import write_synthetic_records
+
+    data, _ = write_synthetic_records(
+        os.path.join(BUILD, "data_ssd"), SSD_EVAL_IMAGES, SSD_CLASSES,
+        SEED + 15, height=SSD_SIZE, width=SSD_SIZE, split="val")
+    config = evaluator.apply_eval_config_mutations(get_config(ssd_config(
+        "ssd_eval", SSD_CLASSES, "bfloat16",
+        train={"batch_size": SSD_EVAL_BATCH,
+               "job_dir": os.path.join(BUILD, "jobs"), "run_name": "ssd"},
+        dataset={"dir": data, "transfer_dtype": "uint8"})), "val")
+    model = get_model(config.model.type)(config, dtype=model_dtype(config))
+    load_model_weights(model.to(device), load_checkpoint_variables(config))
+    evaluator.evaluate_once(config, model, max_batches=1)  # warm-up
+    captured, counts = [], {}
+    with capturing_k1(captured) as k1, counting_k2_k3(counts):
+        metrics = evaluator.evaluate_once(config, model)
+    no_k2_k3("ssd-eval", counts)
+    batches = math.ceil(SSD_EVAL_IMAGES / SSD_EVAL_BATCH)
+    shapes = [tuple(c[0].shape[:2]) + (c[3],) for c in captured]
+    if shapes != [(SSD_EVAL_BATCH * SSD_CLASSES, 1000, 100)] * batches:
+        raise AssertionError(f"[ssd-eval] K1 launched at {shapes}")
+    if metrics["images"] != SSD_EVAL_IMAGES or not all(
+        math.isfinite(v) for v in metrics.values()
+    ):
+        raise AssertionError(f"[ssd-eval] metrics {metrics}")
+    k1_ms, plain_ms, bound_ms, _ = hold_k1(captured, "ssd-eval")
+    phase("ssd-eval", model="ssd_vgg16", classes=SSD_CLASSES,
+          dtype="bfloat16", canvas=f"{SSD_SIZE}x{SSD_SIZE}",
+          batch=SSD_EVAL_BATCH, images=metrics["images"], batches=batches,
+          k1_launches=k1.launches, k2_launches=counts["k2"],
+          k3_launches=counts["k3"],
+          k1_per_class=f"{SSD_EVAL_BATCH * SSD_CLASSES}x1000", k1_equal=True,
+          k1_valid_per_group=valid_per_group(captured),
+          k1_ms=f"{k1_ms:.4f}", k1_plain_ms=f"{plain_ms:.4f}",
+          k1_bound_ms=f"{bound_ms:.4f}",
+          images_per_s=f"{metrics['images_per_second']:.2f}",
+          forward_device_ms=f"{metrics['forward_device_ms']:.2f}",
+          ap50=f"{metrics['AP@0.5']:.6f}",
+          ap=f"{metrics['AP@[0.5:0.95]']:.6f}",
+          ar=f"{metrics['AR@[0.5:0.95]']:.6f}",
+          losses="/".join(f"{k.split('/')[1]}={v:.4f}"
+                          for k, v in sorted(metrics.items())
+                          if k.startswith("losses/")),
+          card=f"'{card}'")
+    return {"k1": k1.launches, **counts}
+
+
 def unit_scale(grad):
     """The power of two (exact in bf16) that brings the largest magnitude
     of the cotangents ``grad`` into [1, 2)."""
@@ -1588,11 +2084,13 @@ def main():
                   seconds=f"{seconds:.1f}")
 
     k1_err, k1_times = check_k1(device)
+    k1_times.update(check_k1_ssd(device))
     k2_err, k2 = check_k2(device)
     torch.cuda.empty_cache()
     k3_err, k3_times = check_k3(device)
     torch.cuda.empty_cache()
     check_small_parity(device)
+    check_ssd_parity(device)
     served, detector = serve(device, card)
     recheck_on_served_tensors(detector, device)
     del detector
@@ -1608,11 +2106,18 @@ def main():
     paths["predict"] = predict_phase(device)
     paths["serve_latency"] = serve_latency(device, card)
     paths["web"] = web_phase(device, card)
+    torch.cuda.empty_cache()
+    paths["ssd_serve"], _ = ssd_serve(device, card)
+    torch.cuda.empty_cache()
+    paths["ssd_train"] = ssd_train(device, card)
+    paths["ssd_eval"] = ssd_eval(device, card)
 
     rpn_ms, rpn_plain_ms, rpn_bound_ms, rpn_bound_by = k1_times[(8, 12000)]
     k3_ms, k3_plain_ms, k3_bound_ms, k3_bound_by = k3_times["bfloat16"]
     def by_path(kernel):
-        return {name: counts.get(kernel, 0) for name, counts in paths.items()}
+        # Only the paths whose run counted this kernel's launches.
+        return {name: counts[kernel] for name, counts in paths.items()
+                if kernel in counts}
 
     print(json.dumps({"kernels": [
         {"name": "nms_alive", "route": "cuda",
@@ -1622,7 +2127,12 @@ def main():
          "launches_by_path": by_path("k1"),
          "max_abs_err": k1_err, "ms": rpn_ms, "plain_ms": rpn_plain_ms,
          "bound_ms": rpn_bound_ms, "bound_by": rpn_bound_by,
-         "library_ms": None},
+         "library_ms": None,
+         "shapes": [{"groups": g, "candidates": n, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+                    for (g, n), (ms, plain_ms, bound_ms, bound_by)
+                    in k1_times.items()]},
         {"name": "roi_crop_pool", "route": "cuda",
          "source": "luminoth_tpu_torch/csrc/roi_align.cu",
          "replaces": "luminoth_tpu/ops/pallas/roi_align_kernel.py:351",
@@ -1632,7 +2142,7 @@ def main():
         {"name": "roi_crop_pool_backward", "route": "cuda",
          "source": "luminoth_tpu_torch/csrc/roi_align.cu",
          "replaces": "luminoth_tpu/ops/pallas/roi_align_kernel.py:189",
-         "launches": trained["k3"],
+         "launches": sum(by_path("k3").values()),
          "launches_by_path": by_path("k3"),
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound_ms, "bound_by": k3_bound_by,

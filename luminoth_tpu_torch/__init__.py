@@ -1,7 +1,7 @@
 """luminoth_tpu_torch — the PyTorch/CUDA port of luminoth_tpu.
 
-Faster R-CNN (ResNet v1 trunk) serving, training, evaluation and the
-predict/serve tools (``python -m luminoth_tpu_torch``) on an NVIDIA GPU,
+Faster R-CNN (ResNet v1 trunk) and SSD (truncated VGG-16) serving,
+training, evaluation and the predict/serve tools (``python -m luminoth_tpu_torch``) on an NVIDIA GPU,
 held against the JAX package ``luminoth_tpu`` (the reference, which it
 never imports: the host code it needs, from config resolution to the
 dataset readers, is copied here). The TPU Pallas kernels are hand-written CUDA C++

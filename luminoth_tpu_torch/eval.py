@@ -34,7 +34,7 @@ from luminoth_tpu_torch.utils.checkpoint_io import (
     CheckpointManager,
     load_model_weights,
 )
-from luminoth_tpu_torch.utils.config import get_config
+from luminoth_tpu_torch.utils.config import get_config, proposals_config
 from luminoth_tpu_torch.utils.predicting import model_dtype, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -314,19 +314,22 @@ def evaluate_once(config, model, writer=None, global_step=0, forward=None,
 def apply_eval_config_mutations(config, dataset_split, max_detections=100):
     """Evaluation-mode config mutations, as in the JAX package.
 
-    Disables augmentation and shuffling, zeroes the score floor and forces
-    ``pre_nms_max_candidates=0``: eval NMS-es ALL the post-RPN proposals
-    per class (the 512-candidate cap of the base config is a serving
-    setting), so the mAP measured here has the reference's semantics.
+    Disables augmentation and shuffling and zeroes the score floor. For
+    Faster R-CNN it also forces ``pre_nms_max_candidates=0``: eval NMS-es
+    ALL the post-RPN proposals per class (the 512-candidate cap of the base
+    config is a serving setting), so the mAP measured here has the
+    reference's semantics. For SSD the zero floor moves the detections to
+    the per-class path.
     """
     config.dataset.split = dataset_split
     config.train.num_epochs = 1
     config.dataset.data_augmentation = None
     config.train.random_shuffle = False
-    proposals = config.model.rcnn.proposals
+    proposals = proposals_config(config)
+    if config.model.type == "fasterrcnn":
+        proposals.pre_nms_max_candidates = 0
     proposals.total_max_detections = max_detections
     proposals.min_prob_threshold = 0.0
-    proposals.pre_nms_max_candidates = 0
     return config
 
 

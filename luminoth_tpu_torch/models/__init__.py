@@ -1,11 +1,13 @@
-"""Model registry (the port has Faster R-CNN; SSD is still to port)."""
+"""Model registry (counterpart of the JAX package's ``models/__init__.py``)."""
 
 
 def get_model(model_type):
+    if model_type == "ssd":
+        from luminoth_tpu_torch.models.ssd import SSD
+
+        return SSD
     if model_type == "fasterrcnn":
         from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
 
         return FasterRCNN
-    if model_type == "ssd":
-        raise NotImplementedError("SSD is not ported to PyTorch yet")
     raise ValueError('Invalid model type "{}"'.format(model_type))

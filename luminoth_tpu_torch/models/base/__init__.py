@@ -1,1 +1,1 @@
-"""Backbones: ResNet v1 trunk and ROI tail."""
+"""Backbones: ResNet v1 trunk and ROI tail, truncated VGG-16."""

@@ -23,7 +23,11 @@ import click
 import numpy as np
 
 from luminoth_tpu_torch.io import read_image
-from luminoth_tpu_torch.utils.config import get_config, override_config_params
+from luminoth_tpu_torch.utils.config import (
+    get_config,
+    override_config_params,
+    proposals_config,
+)
 from luminoth_tpu_torch.utils.predicting import (
     ZOO_NOT_PORTED,
     PredictorNetwork,
@@ -251,8 +255,9 @@ def predict(path_or_dir, config_files, checkpoint, override_params,
     config = apply_serving_profile(config, profile)
 
     # Filter bounding boxes according to the CLI flags.
-    config.model.rcnn.proposals.total_max_detections = max_detections
-    config.model.rcnn.proposals.min_prob_threshold = min_prob
+    proposals = proposals_config(config)
+    proposals.total_max_detections = max_detections
+    proposals.min_prob_threshold = min_prob
 
     network = PredictorNetwork(config, device=device)
 

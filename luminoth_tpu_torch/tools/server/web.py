@@ -269,6 +269,7 @@ def web(config_files, checkpoint, override_params, host, port, batch_size,
     from luminoth_tpu_torch.utils.config import (
         get_config,
         override_config_params,
+        proposals_config,
     )
     from luminoth_tpu_torch.utils.serving import apply_serving_profile
 
@@ -281,7 +282,7 @@ def web(config_files, checkpoint, override_params, host, port, batch_size,
         config = override_config_params(config, override_params)
     config = apply_serving_profile(config, profile)
     # A low floor, so the page's slider can filter on the client.
-    config.model.rcnn.proposals.min_prob_threshold = MIN_PROB_FOR_FRONTEND
+    proposals_config(config).min_prob_threshold = MIN_PROB_FOR_FRONTEND
 
     run_server(config, host=host, port=port, batch_size=batch_size,
                batch_wait_ms=batch_wait_ms, device=device)

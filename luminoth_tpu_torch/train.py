@@ -3,10 +3,11 @@ summaries, and the ``train`` command.
 
 Counterpart of the JAX package's ``train.py`` on one CUDA device (or the
 CPU, for tests). The step is the JAX ``make_train_step``'s: uint8 images
-cast to float on the device, the forward with ground truth, the 4-part
-loss, gradients of the trainable partition only (frozen parameters have
-``requires_grad`` False, so autograd never enters the frozen early blocks),
-the pre-clip global gradient norm, and the reported ``total_loss`` with the
+cast to float on the device, the forward with ground truth, the model's
+loss (Faster R-CNN's 4 parts, or SSD's multibox loss: SSD makes no
+detections in training and launches no kernel), gradients of the
+trainable partition only (frozen parameters have ``requires_grad`` False,
+so autograd never enters the frozen early blocks), the pre-clip global gradient norm, and the reported ``total_loss`` with the
 L2 term (``no_reg_loss`` without it). Target subsampling and dropout draw
 from a ``torch.Generator`` seeded by (``train.seed``, step), so a resumed
 run draws what an uninterrupted one would.

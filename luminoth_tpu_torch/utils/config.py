@@ -2,8 +2,8 @@
 
 A copy of the JAX package's ``utils/config.py``, with the same semantics:
 
-* Each model ships a ``base_config.yml``; the port keeps its own copy of
-  the Faster R-CNN one at ``models/fasterrcnn/base_config.yml``.
+* Each model ships a ``base_config.yml``; the port keeps its own copies,
+  ``models/fasterrcnn/base_config.yml`` and ``models/ssd/base_config.yml``.
 * User YAML files are deep-merged on top of the base config.
 * Dotted-path CLI overrides (``-o train.learning_rate.value=1e-4``) are merged
   last, with scalar values parsed as none/bool/int/float/str.
@@ -109,14 +109,22 @@ _MODELS_DIR = os.path.join(
 
 
 def get_base_config(model_type):
-    """The merged ``base_config.yml`` of a model type, e.g. ``fasterrcnn``."""
-    if model_type != "fasterrcnn":
-        raise NotImplementedError(
-            f"model type {model_type!r} is not ported to PyTorch yet"
-        )
+    """The merged ``base_config.yml`` of a model type, ``fasterrcnn`` or
+    ``ssd``."""
+    if model_type not in ("fasterrcnn", "ssd"):
+        raise ValueError('Invalid model type "{}"'.format(model_type))
     return load_config_files(
         [os.path.join(_MODELS_DIR, model_type, "base_config.yml")]
     )
+
+
+def proposals_config(config):
+    """The final detection stage's ``proposals`` section of a model config:
+    ``model.rcnn.proposals`` for Faster R-CNN, ``model.proposals`` for
+    SSD."""
+    if config.model.type == "fasterrcnn":
+        return config.model.rcnn.proposals
+    return config.model.proposals
 
 
 def _is_string(value):

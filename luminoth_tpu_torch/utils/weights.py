@@ -8,7 +8,11 @@ plus two layout changes:
 
 * conv kernels HWIO → OIHW, dense kernels (in, out) → (out, in);
 * batch norm ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
-  ``running_mean``/``running_var`` (eps 1e-5 lives in the module).
+  ``running_mean``/``running_var`` (eps 1e-5 lives in the module);
+  SSD's L2-normalisation ``gamma`` keeps its name and (1, 1, 1, C) shape.
+
+A flax module name may hold a ``/`` (VGG's ``conv1/conv1_1``): the port
+nests it (``conv1.conv1_1``), so the flat paths of both sides agree.
 
 :func:`init_variables` draws random variables in the flax layout with the
 JAX model's initializers, for runs that have no JAX (the weights then go
@@ -32,6 +36,7 @@ _FLAX_TO_TORCH_LEAF = {
     "bias": "bias",
     "mean": "running_mean",
     "var": "running_var",
+    "gamma": "gamma",
 }
 _BN_TO_FLAX = {
     "weight": ("params", "scale"),
@@ -121,7 +126,9 @@ def flax_paths(model):
     Batch norm modules map ``weight``/``bias``/``running_mean``/
     ``running_var`` to ``params/<path>/BatchNorm/{scale,bias}`` and
     ``batch_stats/<path>/BatchNorm/{mean,var}``; convs and dense layers
-    map ``weight``/``bias`` to ``params/<path>/{kernel,bias}``.
+    map ``weight``/``bias`` to ``params/<path>/{kernel,bias}``; a
+    module's own parameter named ``gamma`` (SSD's L2 normalisation) maps to
+    ``params/<path>/gamma``.
     """
     paths = {}
     for name, module in model.named_modules():
@@ -134,6 +141,8 @@ def flax_paths(model):
             paths[prefix + "weight"] = f"params/{path}/kernel"
             if module.bias is not None:
                 paths[prefix + "bias"] = f"params/{path}/bias"
+        elif "gamma" in dict(module.named_parameters(recurse=False)):
+            paths[prefix + "gamma"] = f"params/{path}/gamma"
     return paths
 
 
@@ -218,8 +227,11 @@ def _draw(rng, shape, config):
 
 
 def _kernel_initializers(model_config):
-    """Initializer config per head module path (the rest: lecun_normal)."""
-    rpn, rcnn = model_config.rpn, model_config.rcnn
+    """Initializer config per head module path (the rest: lecun_normal).
+    A model without ``rpn`` and ``rcnn`` sections (SSD) has none."""
+    rpn, rcnn = model_config.get("rpn"), model_config.get("rcnn")
+    if rpn is None or rcnn is None:
+        return {}
     inits = {
         "rpn/conv": rpn.get("rpn_initializer"),
         "rpn/cls_conv": rpn.get("cls_initializer"),
@@ -233,12 +245,13 @@ def _kernel_initializers(model_config):
 
 
 def init_variables(config, seed=0):
-    """Random flax-layout variables for the port's Faster R-CNN.
+    """Random flax-layout variables for the port's Faster R-CNN or SSD.
 
     Convs draw flax's default lecun-normal, the RPN and RCNN heads the
-    config's initializers, biases start at 0 and batch norm as the
-    identity. Returns ``{"params": {...}, "batch_stats": {...}}`` of
-    float32 numpy arrays (nested by path), for :func:`load_flax_variables`.
+    config's initializers, biases start at 0, batch norm as the identity
+    and SSD's L2-normalisation scale at 20. Returns ``{"params": {...},
+    "batch_stats": {...}}`` of float32 numpy arrays (nested by path), for
+    :func:`load_flax_variables`.
     """
     from luminoth_tpu_torch.models import get_model
 
@@ -264,7 +277,8 @@ def init_variables(config, seed=0):
             # OIHW → HWIO, (out, in) → (in, out)
             shape = shape[2:] + shape[1::-1] if len(shape) == 4 else shape[::-1]
             value = _draw(rng, shape, inits.get(module_path))
-        else:  # batch norm as the identity, zero biases
-            value = np.full(shape, 1.0 if leaf in ("scale", "var") else 0.0)
+        else:  # batch norm as the identity, zero biases, gamma 20
+            value = np.full(shape, {"scale": 1.0, "var": 1.0,
+                                    "gamma": 20.0}.get(leaf, 0.0))
         put(collection, rest, value)
     return variables

@@ -579,3 +579,104 @@ class TestEvalAndServing:
                                           torch.device("cpu"))
             for g, w in zip(got, want):
                 assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+# ------------------------------------------------------------------- SSD
+
+
+def class_shifted_groups(rng, g, n, classes, device, shift=1e4):
+    """SSD's fused-path groups: score-sorted boxes in a 300x300 image, each
+    shifted by its class x 1e4 (coordinates up to ~1.9e5 at 20 classes,
+    where a float32 ulp is 1/64), exact duplicates, a valid prefix."""
+    boxes, _ = sorted_groups(rng, g, n, 300.0, device, ties=True)
+    cls = torch.from_numpy(rng.randint(0, classes, (g, n))).to(device)
+    boxes = boxes + cls[..., None].float() * shift
+    valid = torch.arange(n, device=device)[None] < torch.from_numpy(
+        rng.randint(n // 3, n + 1, (g, 1))).to(device)
+    return boxes.contiguous(), valid
+
+
+class TestSSDShapes:
+    @pytest.mark.parametrize("g", [32, 128])
+    @pytest.mark.parametrize("keep", [0, 100])
+    def test_fused_class_shifted_groups(self, rng, device, g, keep):
+        """G = B (32, 128 < the SM count: the bitmask path), N = 1000,
+        threshold 0.45, on class-shifted boxes."""
+        boxes, valid = class_shifted_groups(rng, g, 1000, 20, device)
+        got = first_alive(nms.nms_alive_cuda(boxes, valid, 0.45, keep),
+                          keep or 1000)
+        want = first_alive(nms.nms_alive_reference(boxes, valid, 0.45),
+                           keep or 1000)
+        assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("g", [160, 640])
+    def test_per_class_groups(self, rng, device, g):
+        """G = B x 20 (the sweep path), N = 1000, keep 100."""
+        boxes, valid = sorted_groups(rng, g, 1000, 300.0, device, ties=True)
+        got = first_alive(nms.nms_alive_cuda(boxes, valid, 0.45, 100), 100)
+        want = first_alive(nms.nms_alive_reference(boxes, valid, 0.45), 100)
+        assert torch.equal(got, want)
+
+    def test_card_equals_the_cpu(self, device):
+        """SSD at 3 classes, float32 with TF32 off: every anchor's class
+        logits and box offsets within 1e-4; the loss within 1e-5 relative;
+        both detection paths, fed the same head outputs, equal in valid,
+        labels and probabilities, boxes within 1e-4 px."""
+        import copy
+
+        from luminoth_tpu_torch.models.ssd import SSD
+        from luminoth_tpu_torch.models.ssd.proposal import ssd_proposal
+        from luminoth_tpu_torch.utils.config import (
+            Config,
+            get_base_config,
+            get_model_config,
+        )
+        from luminoth_tpu_torch.utils.weights import (
+            init_variables,
+            load_flax_variables,
+        )
+
+        config = get_model_config(get_base_config("ssd"), Config(
+            {"model": {"network": {"num_classes": 3}}}))
+        model = load_flax_variables(SSD(config), init_variables(config, 0))
+        model.eval()
+        images = torch.rand((2, 300, 300, 3),
+                            generator=torch.Generator().manual_seed(0)) * 255
+        gt = torch.tensor([[[20, 30, 140, 160, 0], [150, 100, 290, 280, 2]],
+                           [[100, 100, 220, 200, 1], [0, 0, 0, 0, -1]]],
+                          dtype=torch.float32)
+        card = copy.deepcopy(model).to(device)
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.inference_mode():
+                want = model(images, gt_boxes=gt)
+                got = card(images.to(device), gt_boxes=gt.to(device))
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+        for key in ("cls_pred", "loc_pred"):
+            assert float((got[key].cpu() - want[key]).abs().max()) <= 1e-4, key
+        for key, value in model.loss(want, return_all=True).items():
+            card_value = float(card.loss(got, return_all=True)[key])
+            assert abs(card_value - float(value)) <= 1e-5 * abs(
+                float(value)), key
+        probs = torch.softmax(got["cls_pred"], -1)
+        p_cfg = config.model.proposals
+        for min_prob in (0.5, 0.0):  # fused, per class
+            args = (3, 0.45, int(p_cfg.class_max_detections),
+                    int(p_cfg.total_max_detections), min_prob, (0.1, 0.2))
+            det_card = ssd_proposal(probs, got["loc_pred"], got["anchors"],
+                                    (300, 300), *args)
+            det_cpu = ssd_proposal(probs.cpu(), got["loc_pred"].cpu(),
+                                   got["anchors"].cpu(), (300, 300), *args)
+            valid = det_cpu["valid"]
+            assert valid.sum() > 0
+            assert torch.equal(det_card["valid"].cpu(), valid)
+            for key in ("labels", "probs"):
+                assert torch.equal(det_card[key].cpu()[valid],
+                                   det_cpu[key][valid]), key
+            assert float((det_card["objects"].cpu() - det_cpu["objects"])
+                         [valid].abs().max()) <= 1e-4

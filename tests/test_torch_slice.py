@@ -41,6 +41,7 @@ from luminoth_tpu_torch.utils.weights import (
     init_variables,
     load_flax_variables,
 )
+from test_torch_isolation import jax_cache_isolation  # noqa: F401
 
 BOX_ATOL = 1e-2  # px
 PROB_ATOL = 1e-5
@@ -240,12 +241,13 @@ class TestPredictor:
 
 
 class TestPackage:
-    def test_base_config_matches_jax(self):
-        assert to_plain(torch_config.get_base_config("fasterrcnn")) == (
-            to_plain(get_base_config(JaxFasterRCNN))
+    @pytest.mark.parametrize("model_type", ["fasterrcnn", "ssd"])
+    def test_base_config_matches_jax(self, model_type):
+        from luminoth_tpu.models import get_model as jax_get_model
+
+        assert to_plain(torch_config.get_base_config(model_type)) == (
+            to_plain(get_base_config(jax_get_model(model_type)))
         )
-        with pytest.raises(NotImplementedError):
-            torch_config.get_base_config("ssd")
 
     def test_imports_neither_jax_nor_flax(self):
         # Every module of the port, its trainer and every module that
