@@ -25,7 +25,13 @@ its forward and detection paths on the card against the CPU at a small
 size, serving at batches 32 and 128 (bf16) with the grouped NMS held
 against its plain version on each forward's own tensors, ``train.run`` at
 batch 32 (no kernel launched), and ``evaluate_once`` on that checkpoint
-(the per-class NMS held the same way).
+(the per-class NMS held the same way). The int8 ``fast`` serving profile:
+its int8 layers on the card against the CPU at a small size
+(``[int8-parity]``), Faster R-CNN under ``fast`` at full width beside the
+``accurate`` forward (``[fast-serve]``, K1 and K2 held on its own
+tensors), SSD under ``fast`` at batches 32 and 128 (``[ssd-fast-serve]``)
+and a one-image ``predict --profile fast`` request for each model
+(``[fast-predict]``).
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, ...}``.
@@ -111,6 +117,30 @@ SSD_EVAL_IMAGES, SSD_EVAL_BATCH = 20, 8  # 2 batches of 8, a final 4 padded
 # detection stage on the card's head outputs, boxes in px.
 SSD_LOSS_RTOL, SSD_HEAD_ATOL, SSD_BOX_ATOL = 1e-5, 1e-4, 1e-4
 SSD_LOGIT_STD = 3.0  # [ssd-serve]: class logits rescaled to this std
+# The int8 `fast` serving profile: the share of int8 codes that may flip
+# card against CPU at a quant point after a float layer. cuDNN's float32
+# convolutions (Winograd for 3x3 among them) differ from the CPU's by up to
+# ~1e-5 relative; that moves a range by as much and flips each code within
+# that of a rounding boundary (measured: 0.6% at SSD's conv3_1); the int8
+# layers after it carry those flips on (4.9% at a later SSD point). Their
+# outputs, relative to the largest magnitude, within INT8_MAP_RTOL: a check
+# for gross faults (a layout, a padding); the exact cases are bitwise. The
+# small `fast` Faster R-CNN card against CPU: calibrated maxima (relative)
+# and boxes (px); the int8 tail's ROIs in [int8-parity].
+INT8_FLIP_BOUND, INT8_MAP_RTOL = 2e-2, 0.25
+# Of the small `fast` Faster R-CNN's top FAST_PARITY_DETECTIONS per image
+# at least FAST_PAIRED_SHARE pair within FAST_BOX_ATOL px and
+# FAST_PROB_ATOL: codes flipped after cuDNN's float trunk move the int8
+# tail's outputs by ~1% (the JAX package against the port on the CPU:
+# probabilities 3e-3 apart; card against CPU, 3 of 10 outside 0.1 px and
+# 5e-3; at the 300 cap with 80 classes at min_prob 0, near-ties reorder:
+# 41 of 300). The tail itself is held bitwise on the card forward's own
+# ROI features.
+FAST_SCALE_RTOL, FAST_BOX_ATOL, FAST_PROB_ATOL = 1e-2, 1.0, 2e-2
+FAST_PARITY_DETECTIONS, FAST_PAIRED_SHARE = 10, 0.8
+PROB_ATOL = 1e-4 + 1e-5  # the predictor rounds probabilities to 4 places
+SSD_FAST_BOX_ATOL = 1e-3  # px, SSD `fast` detections card against CPU
+INT8_PARITY_ROIS = 24
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(HERE, "build", "chip_smoke")
 
@@ -716,47 +746,19 @@ def recheck_on_served_tensors(detector, device):
     """K1 and K2 against their plain versions on one served forward's
     own inputs (RPN top-12000 boxes, per-class groups, real feature map)."""
     import numpy as np
-    import torch
-    from luminoth_tpu_torch.ops import nms, roi_align
 
-    captured = {"nms": [], "roi": []}
-    nms_kernel, roi_kernel = nms.nms_alive_cuda, roi_align.roi_crop_pool_cuda
-
-    def nms_capture(boxes, valid, thr, keep=0):
-        captured["nms"].append((boxes.clone(), valid.clone(), thr, keep))
-        return nms_kernel(boxes, valid, thr, keep)
-
-    def roi_capture(fm, boxes, s):
-        captured["roi"].append((fm.clone(), boxes.clone(), s))
-        return roi_kernel(fm, boxes, s)
-
-    # The wrappers count their launches on the name they are bound to.
-    nms_capture.launches = roi_capture.launches = 0
-    nms.nms_alive_cuda, roi_align.roi_crop_pool_cuda = nms_capture, roi_capture
-    try:
+    k1s, k2s, survivors = [], [], []
+    with capturing_k1(k1s), capturing_k2(k2s):
         rng = np.random.default_rng(SEED + 1)
         detector.predict([rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
                           for _ in range(BATCH)])
-    finally:
-        nms.nms_alive_cuda, roi_align.roi_crop_pool_cuda = (
-            nms_kernel, roi_kernel)
-
-    for boxes, valid, thr, keep in captured["nms"]:
-        got = first_alive(nms_kernel(boxes, valid, thr, keep), keep)
-        want = first_alive(nms.nms_alive_reference(boxes, valid, thr), keep)
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"K1 disagrees on served tensors {tuple(boxes.shape)}")
+    hold_k1(k1s, "k1-served", survivors=survivors, timed=False)
+    for (boxes, valid, thr, keep), count in zip(k1s, survivors):
         phase("k1-served", groups=boxes.shape[0], candidates=boxes.shape[1],
-              threshold=thr, keep=keep, equal=True,
-              survivors=int(got.ge(0).sum()))
-    for fm, boxes, s in captured["roi"]:
-        got = roi_kernel(fm, boxes, s).float()
-        want = roi_align.roi_crop_pool_reference(fm.float(), boxes, s)
-        err = float((got - want).abs().max())
-        if not bool(((got - want).abs()
-                     <= K2_BF16_RTOL * want.abs() + K2_BF16_ATOL).all()):
-            raise AssertionError(f"K2 disagrees on served tensors: {err}")
+              threshold=thr, keep=keep, equal=True, survivors=count)
+    errors = []
+    hold_k2(k2s, "k2-served", errors=errors, timed=False)
+    for (fm, boxes, s), err in zip(k2s, errors):
         phase("k2-served", shape="x".join(map(str, fm.shape)),
               rois=boxes.shape[1], dtype=str(fm.dtype).split(".")[-1],
               max_abs_err=err)
@@ -1246,10 +1248,9 @@ def eval_phase(device, card):
     final batch of 4 padded to 8), after a one-batch warm-up. Holds the
     uncapped per-class K1 launch (G=640, N=2000) of the last forward
     against its plain version on its own tensors."""
-    import torch
     from luminoth_tpu_torch import eval as evaluator
     from luminoth_tpu_torch.models import get_model
-    from luminoth_tpu_torch.ops import nms, roi_align
+    from luminoth_tpu_torch.ops import roi_align
     from luminoth_tpu_torch.utils.checkpoint_io import load_model_weights
     from luminoth_tpu_torch.utils.config import get_config
     from luminoth_tpu_torch.utils.predicting import (
@@ -1266,23 +1267,11 @@ def eval_phase(device, card):
     load_model_weights(model.to(device), load_checkpoint_variables(config))
     evaluator.evaluate_once(config, model, max_batches=1)  # warm-up
 
-    kernel = nms.nms_alive_cuda
-    shapes, per_class = [], []
-
-    def k1_capture(boxes, valid, thr, keep=0):
-        shapes.append((boxes.shape[0], boxes.shape[1], keep))
-        if boxes.shape[0] > BATCH:  # per class
-            per_class[:] = [(boxes.clone(), valid.clone(), thr, keep)]
-        return kernel(boxes, valid, thr, keep)
-
-    # The wrapper counts its launches on the name it is bound to.
-    k1_capture.launches = roi_align.roi_crop_pool_cuda.launches = 0
-    nms.nms_alive_cuda = k1_capture
-    try:
+    captured = []
+    with capturing_k1(captured) as k1:
+        roi_align.roi_crop_pool_cuda.launches = 0
         metrics = evaluator.evaluate_once(config, model)
-    finally:
-        nms.nms_alive_cuda = kernel
-    launches = {"k1": k1_capture.launches,
+    launches = {"k1": k1.launches,
                 "k2": roi_align.roi_crop_pool_cuda.launches}
     batches = math.ceil(EVAL_IMAGES / BATCH)
     check_forwards("eval", launches, batches)
@@ -1292,6 +1281,7 @@ def eval_phase(device, card):
         (BATCH * classes.num_classes, rpn.post_nms_top_n,
          config.model.rcnn.proposals.class_max_detections),
     ] * batches
+    shapes = [(c[0].shape[0], c[0].shape[1], c[3]) for c in captured]
     if shapes != want_shapes:
         raise AssertionError(f"[eval] K1 launched at {shapes}")
     if metrics["images"] != EVAL_IMAGES or not all(
@@ -1299,13 +1289,11 @@ def eval_phase(device, card):
     ):
         raise AssertionError(f"[eval] metrics {metrics}")
 
+    # The last forward's per-class launch, held exactly and timed.
+    per_class = [c for c in captured if c[0].shape[0] > BATCH][-1:]
+    survivors = []
+    k1_ms = hold_k1(per_class, "eval", survivors=survivors)[0]
     boxes, valid, thr, keep = per_class[0]
-    got = first_alive(kernel(boxes, valid, thr, keep), keep)
-    want = first_alive(nms.nms_alive_reference(boxes, valid, thr), keep)
-    if not torch.equal(got, want):
-        raise AssertionError("K1 disagrees on the eval forward's per-class "
-                             "tensors")
-    k1_ms = cuda_ms(lambda: kernel(boxes, valid, thr, keep), 20, warmup=3)
     phase("eval", model="resnet_v1_101", classes=80, dtype="bfloat16",
           canvas=f"{CANVAS[0]}x{CANVAS[1]}", batch=BATCH,
           images=metrics["images"], batches=batches,
@@ -1322,7 +1310,7 @@ def eval_phase(device, card):
           card=f"'{card}'")
     phase("k1-eval", groups=boxes.shape[0], candidates=boxes.shape[1],
           threshold=thr, keep=keep, equal=True,
-          survivors=int(got.ge(0).sum()), kernel_ms=f"{k1_ms:.4f}")
+          survivors=survivors[0], kernel_ms=f"{k1_ms:.4f}")
     return launches
 
 
@@ -1677,9 +1665,10 @@ def valid_per_group(captured):
             f"{int(valid.max())}")
 
 
-def hold_k1(captured, name):
-    """Each captured K1 launch against the plain version, exactly; returns
-    (kernel ms, plain ms, bound ms, bound by) of the last one."""
+def hold_k1(captured, name, survivors=None, timed=True):
+    """Each captured K1 launch against the plain version, exactly; appends
+    each launch's survivors to ``survivors``; returns (kernel ms, plain
+    ms, bound ms, bound by) of the last one (None when not ``timed``)."""
     import torch
     from luminoth_tpu_torch.ops import nms
 
@@ -1689,11 +1678,73 @@ def hold_k1(captured, name):
         if not torch.equal(got, first_alive(plain, keep)):
             raise AssertionError(f"[{name}] K1 disagrees with its plain "
                                  f"version on {tuple(boxes.shape)}")
+        if survivors is not None:
+            survivors.append(int(got.ge(0).sum()))
+    if not timed:
+        return None
     boxes, valid, thr, keep = captured[-1]
     return (cuda_ms(lambda: nms.nms_alive_cuda(boxes, valid, thr, keep), 20,
                     warmup=3),
             cuda_ms(lambda: nms.nms_alive_reference(boxes, valid, thr), 3),
             *k1_bound(boxes, valid, plain, keep))
+
+
+@contextlib.contextmanager
+def capturing_k2(captured):
+    """Binds K2's wrapper to one that keeps copies of each launch's inputs
+    in ``captured``; yields it (it counts its launches)."""
+    from luminoth_tpu_torch.ops import roi_align
+
+    kernel = roi_align.roi_crop_pool_cuda
+
+    def k2_capture(fm, boxes, s):
+        captured.append((fm.clone(), boxes.clone(), s))
+        return kernel(fm, boxes, s)
+
+    k2_capture.launches = 0
+    roi_align.roi_crop_pool_cuda = k2_capture
+    try:
+        yield k2_capture
+    finally:
+        roi_align.roi_crop_pool_cuda = kernel
+
+
+def hold_k2(captured, name, errors=None, timed=True, library=False):
+    """Each captured K2 launch against the plain version on its own
+    tensors (float32 maps within ``K2_F32_ATOL``, bf16 within K2's bf16
+    bound); appends each max abs error to ``errors``; returns a dict of
+    the last one's ms, plain ms, bound ms and bound by, and the library
+    form's ms with ``library`` (None when not ``timed``)."""
+    import torch
+    from luminoth_tpu_torch.ops import roi_align
+
+    for fm, boxes, s in captured:
+        got = roi_align.roi_crop_pool_cuda(fm, boxes, s).float()
+        want = roi_align.roi_crop_pool_reference(fm.float(), boxes, s)
+        diff = (got - want).abs()
+        err = float(diff.max())
+        if fm.dtype == torch.float32:
+            within = err <= K2_F32_ATOL
+        else:
+            within = bool((diff <= K2_BF16_RTOL * want.abs()
+                           + K2_BF16_ATOL).all())
+        if not within:
+            raise AssertionError(f"[{name}] K2 disagrees with its plain "
+                                 f"version on {tuple(fm.shape)}: {err}")
+        if errors is not None:
+            errors.append(err)
+    if not timed:
+        return None
+    fm, boxes, s = captured[-1]
+    bound_ms, bound_by = k2_bound(fm, boxes, s)
+    return {
+        "ms": cuda_ms(lambda: roi_align.roi_crop_pool_cuda(fm, boxes, s),
+                      10, warmup=2),
+        "plain_ms": cuda_ms(
+            lambda: roi_align.roi_crop_pool_reference(fm, boxes, s), 2),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": k2_library_ms(fm, boxes, s) if library else None,
+    }
 
 
 def check_ssd_parity(device):
@@ -2037,6 +2088,599 @@ def ssd_eval(device, card):
     return {"k1": k1.launches, **counts}
 
 
+# ------------------------------------------------------------- int8 `fast`
+
+
+@contextlib.contextmanager
+def recording_codes(record):
+    """Appends the int8 codes and range (on the CPU) of every activation
+    the int8 layers quantize in the block to ``record``."""
+    from luminoth_tpu_torch.models.base import quantized_tail
+
+    quantize = quantized_tail.quantize_with_range
+
+    def recorder(x, amax):
+        q, r = quantize(x, amax)
+        record.append((q.cpu(), r.cpu()))
+        return q, r
+
+    quantized_tail.quantize_with_range = recorder
+    try:
+        yield
+    finally:
+        quantized_tail.quantize_with_range = quantize
+
+
+def code_flips(name, cpu, card, bound):
+    """Compares two code records point by point. ``bound`` 0: every code
+    and range equal. Else at most ``bound`` of the first point's codes may
+    differ (the point that reads the float layer); later points inherit
+    those flips through the int8 layers and are counted, not bounded.
+    Returns (points, codes, flipped codes, most flipped share)."""
+    import torch
+
+    if len(cpu) != len(card):
+        raise AssertionError(f"[int8-parity] {name}: {len(cpu)} quant points "
+                             f"on the CPU, {len(card)} on the card")
+    codes = flipped = 0
+    worst = 0.0
+    for i, ((q_cpu, r_cpu), (q_card, r_card)) in enumerate(zip(cpu, card)):
+        flips = int((q_cpu != q_card).sum())
+        codes += q_cpu.numel()
+        flipped += flips
+        worst = max(worst, flips / q_cpu.numel())
+        if (bound == 0 and (flips or not torch.equal(r_cpu, r_card))) or (
+                i == 0 and flips > bound * q_cpu.numel()):
+            raise AssertionError(
+                f"[int8-parity] {name}: point {i}: {flips} of "
+                f"{q_cpu.numel()} codes flipped (bound {bound}), ranges "
+                f"{float(r_cpu)} / {float(r_card)}")
+    return len(cpu), codes, flipped, worst
+
+
+def randomized(module, seed):
+    """``module`` with N(0, 1/fan_in) conv kernels, small random biases
+    and random inference batch norms, drawn on the CPU from ``seed``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                               * fan_in ** -0.5)
+                if m.bias is not None:
+                    m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+            elif hasattr(m, "running_var"):
+                for t, lo, hi in ((m.weight, 0.5, 1.5),
+                                  (m.running_var, 0.5, 1.5)):
+                    t.copy_(torch.rand(t.shape, generator=g) * (hi - lo) + lo)
+                for t in (m.bias, m.running_mean):
+                    t.copy_(torch.randn(t.shape, generator=g) * 0.2)
+    return module
+
+
+def both_devices(module, device, run):
+    """``run(module, device)`` on the CPU and on the card, with the codes
+    each run quantized: ((cpu output, codes), (card output, codes))."""
+    import copy
+
+    outs = []
+    for on, m in (("cpu", module), (device, copy.deepcopy(module).to(device))):
+        record = []
+        with recording_codes(record):
+            outs.append((run(m, on), record))
+    return outs
+
+
+def single_tap_ssd_float_stage(variables, seed):
+    """SSD variables whose conv1/conv2 kernels read one input channel at
+    the centre tap times 0.5 or 1 (biases in {-8, 0, 4}): the float stage
+    of the int8 path is then exact in any summation order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vgg = variables["params"]["feature_extractor"]["vgg_16"]
+    for stage in ("conv1", "conv2"):
+        for name, layer in vgg[stage].items():
+            kh, kw, cin, cout = layer["kernel"].shape
+            kernel = np.zeros((kh, kw, cin, cout), np.float32)
+            kernel[kh // 2, kw // 2, np.arange(cout) % cin,
+                   np.arange(cout)] = rng.choice([0.5, 1.0], cout)
+            layer["kernel"] = kernel
+            layer["bias"] = rng.choice([-8.0, 0.0, 4.0], cout).astype(
+                np.float32)
+    return variables
+
+
+def paired(name, got, want, box_atol, prob_atol, share):
+    """One image's detections: at least ``share`` of them pair one to one
+    with an object of the same label, box (``box_atol`` px) and
+    probability (``prob_atol``); ties in probability may come in either
+    order. Returns (largest box difference of the pairs, unpaired)."""
+    import numpy as np
+
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"[int8-parity] {name}: {len(got)} detections "
+                             f"on the card, {len(want)} on the CPU")
+    unmatched, worst, unpaired = list(want), 0.0, 0
+    for o in got:
+        match = next((w for w in unmatched if w["label"] == o["label"]
+                      and abs(w["prob"] - o["prob"]) <= prob_atol
+                      and np.allclose(o["bbox"], w["bbox"], rtol=0,
+                                      atol=box_atol)), None)
+        if match is None:
+            unpaired += 1
+            continue
+        unmatched.remove(match)
+        worst = max(worst, float(np.abs(np.subtract(o["bbox"],
+                                                    match["bbox"])).max()))
+    if unpaired > (1 - share) * len(want):
+        raise AssertionError(f"[int8-parity] {name}: {unpaired} of "
+                             f"{len(want)} detections have no counterpart "
+                             f"on the CPU (at most {1 - share:.0%})")
+    return worst, unpaired
+
+
+def hold_tail_on_served_features(cpu, card, requests):
+    """The card's int8 tail against the CPU's, bitwise, on the ROI features
+    of one card forward, the CPU taking the card's calibrated maxima."""
+    import torch
+    from luminoth_tpu_torch.models.base import quantized_tail as pq
+
+    keys = pq.int8_stat_keys(card._model)
+    pq.load_int8_stats(cpu._model, {k: card._model.get_buffer(k).cpu()
+                                    for k in keys})
+    captured = {}
+    tail = card._model.base_network_tail
+    hook = tail.register_forward_hook(lambda module, args, out: captured
+                                      .update(x=args[0].clone(),
+                                              y=out.clone()))
+    try:
+        card.predict_batch(requests)
+    finally:
+        hook.remove()
+    with torch.inference_mode():
+        want = cpu._model.base_network_tail(captured["x"].cpu())
+    if not torch.equal(captured["y"].cpu(), want):
+        raise AssertionError("[int8-parity] the int8 tail differs card "
+                             "against CPU on the served ROI features")
+    return True
+
+
+def check_int8_parity(device):
+    """[int8-parity]: the int8 layers on the card against the CPU, float32
+    with TF32 off, small sizes: the products at served K and N (padded
+    rows included) exactly; the R101 int8 tail (random batch norms) with
+    its calibration and static serving bitwise, codes and ranges equal;
+    the int8 trunk and SSD's int8 maps after their float layers with at
+    most ``INT8_FLIP_BOUND`` of the first point's codes flipped and the
+    outputs within ``INT8_MAP_RTOL``, and bitwise with SSD's float stage
+    made exact; then the small ``fast`` Faster R-CNN and SSD
+    through ``PredictorNetwork`` (each calibrated at load): Faster R-CNN
+    maxima within ``FAST_SCALE_RTOL``, the int8 tail bitwise on a card
+    forward's own ROI features, at least ``FAST_PAIRED_SHARE`` of
+    the detections paired with one of the same label within
+    ``FAST_BOX_ATOL`` px and ``FAST_PROB_ATOL``; SSD (exact float stage)
+    maxima equal and every detection paired within ``SSD_FAST_BOX_ATOL``
+    px and the 4-place rounding."""
+    import numpy as np
+    import torch
+    from luminoth_tpu_torch.models.base import quantized_tail as pq
+    from luminoth_tpu_torch.models.ssd import SSD
+    from luminoth_tpu_torch.models.ssd.feature_extractor import (
+        SSDFeatureExtractor,
+    )
+    from luminoth_tpu_torch.utils.config import Config, get_config
+    from luminoth_tpu_torch.utils.predicting import PredictorNetwork
+    from luminoth_tpu_torch.utils.serving import apply_serving_profile
+    from luminoth_tpu_torch.utils.weights import (
+        flax_variables_from_torch,
+        init_variables,
+        load_flax_variables,
+    )
+
+    numbers = {}
+    g = torch.Generator().manual_seed(SEED)
+    for m, k, n in ((1, 1152, 256), (16, 4608, 512), (4000, 4608, 512),
+                    (4000, 1024, 2048)):
+        rows = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g)
+        if not torch.equal(pq.int8_mm(rows.to(device), w.to(device)).cpu(),
+                           pq.int8_mm(rows, w)):
+            raise AssertionError(f"[int8-parity] int32 accumulators differ "
+                                 f"at M={m} K={k} N={n}")
+    numbers["accumulators_equal"] = True
+
+    # The R101 tail: calibrate, then static on a new input; bitwise.
+    tail = randomized(pq.Int8ResNetTail(101, 1024, static_scales=True),
+                      SEED).eval()
+    x = torch.relu(torch.randn(INT8_PARITY_ROIS, 1024, 7, 7, generator=g))
+    x = x.contiguous(memory_format=torch.channels_last)
+
+    def calibrate_then_serve(m, on):
+        with torch.inference_mode():
+            with pq.calibrating(m):
+                first = m(x.to(on))
+            second = m(x.to(on) * 0.7)
+        return (first.cpu(), second.cpu(),
+                [b.cpu() for b in m.buffers()])
+
+    (want, cpu_codes), (got, card_codes) = both_devices(
+        tail, device, calibrate_then_serve)
+    points, codes, _, _ = code_flips("tail", cpu_codes, card_codes, 0)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and all(map(torch.equal, got[2], want[2]))):
+        raise AssertionError("[int8-parity] tail outputs or calibrated "
+                             "maxima differ card against CPU")
+    numbers.update(tail_points=points, tail_codes=codes, tail_flips=0,
+                   tail_bitwise=True)
+
+    # The R101 int8 trunk after its float32 root conv, dynamic.
+    trunk = randomized(pq.Int8ResNetTrunk(101, 16, "block3"), SEED + 1).eval()
+    images = torch.rand(2, 3, 160, 224, generator=g) * 255 - 120
+
+    def forward(m, on):
+        with torch.inference_mode():
+            return m(images.to(on).contiguous(
+                memory_format=torch.channels_last)).cpu()
+
+    (want, cpu_codes), (got, card_codes) = both_devices(trunk, device,
+                                                        forward)
+    points, codes, flips, worst = code_flips("trunk", cpu_codes, card_codes,
+                                             INT8_FLIP_BOUND)
+    trunk_err = float((got - want).abs().max() / want.abs().max())
+    if not trunk_err <= INT8_MAP_RTOL:
+        raise AssertionError(f"[int8-parity] trunk output rel err "
+                             f"{trunk_err}")
+    numbers.update(trunk_points=points, trunk_flips=f"{flips}/{codes}",
+                   trunk_worst_point_share=f"{worst:.2e}",
+                   trunk_rel_err=f"{trunk_err:.2e}")
+
+    # SSD's int8 maps after the float conv1/conv2: random, then exact.
+    config = get_config(ssd_config("int8_parity_ssd", 3, "float32"))
+    ssd_images = (torch.rand(2, 3, SSD_SIZE, SSD_SIZE, generator=g) * 255
+                  - 120).contiguous(memory_format=torch.channels_last)
+
+    def maps(m, on):
+        with torch.inference_mode(), pq.calibrating(m):
+            out = m(ssd_images.to(on))
+        return [t.cpu() for t in out], [b.cpu() for b in m.buffers()]
+
+    for stage in ("random", "exact"):
+        variables = init_variables(config, SEED)
+        if stage == "exact":
+            # cuDNN may take a 3x3 conv through Winograd, inexact even for
+            # single-tap kernels; PyTorch's own conv is a sum of exact
+            # products with zeros.
+            single_tap_ssd_float_stage(variables, SEED)
+        flat = {k.replace("params/feature_extractor/", "params/"): v
+                for k, v in flax_variables_from_torch(load_flax_variables(
+                    SSD(config), variables)).items()
+                if k.startswith("params/feature_extractor/")}
+        extractor = load_flax_variables(SSDFeatureExtractor(Config(
+            {"int8_trunk": True, "int8_static": True})), flat).eval()
+        with torch.backends.cudnn.flags(enabled=stage == "random"):
+            (want, cpu_codes), (got, card_codes) = both_devices(
+                extractor, device, maps)
+        bound = 0 if stage == "exact" else INT8_FLIP_BOUND
+        points, codes, flips, worst = code_flips(f"ssd {stage}", cpu_codes,
+                                                 card_codes, bound)
+        # conv4_3's L2 normalisation sums over channels in float32: in
+        # another order on the card; the other maps and the maxima bitwise.
+        norm_err = float((got[0][0] - want[0][0]).abs().max()
+                         / want[0][0].abs().max())
+        if stage == "exact" and not (all(map(
+                torch.equal, got[0][1:] + got[1], want[0][1:] + want[1]))
+                and norm_err <= 1e-6):
+            raise AssertionError("[int8-parity] SSD maps with the exact "
+                                 "float stage differ card against CPU "
+                                 f"(conv4_3_norm rel err {norm_err})")
+        scale_err = max(float((a - b).abs() / b.abs().clamp(min=1e-12))
+                        for a, b in zip(got[1], want[1]))
+        map_err = max(float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-12)) for a, b in zip(got[0], want[0]))
+        if not map_err <= INT8_MAP_RTOL:
+            raise AssertionError(f"[int8-parity] SSD {stage} maps rel err "
+                                 f"{map_err}")
+        numbers.update({f"ssd_{stage}_points": points,
+                        f"ssd_{stage}_flips": f"{flips}/{codes}",
+                        f"ssd_{stage}_worst_point_share": f"{worst:.2e}",
+                        f"ssd_{stage}_scale_rel_err": f"{scale_err:.2e}",
+                        f"ssd_{stage}_map_rel_err": f"{map_err:.2e}"})
+
+    # The small `fast` models end to end through PredictorNetwork.
+    small_config, small_variables, _ = small_parity_model()
+    fast = apply_serving_profile(small_config, "fast")
+    # [parity]'s small RPN budgets, so the CPU side stays quick, and the
+    # top FAST_PARITY_DETECTIONS per image (the rest tie within 1e-3).
+    fast.model.rpn.proposals.pre_nms_top_n = 400
+    fast.model.rpn.proposals.post_nms_top_n = 50
+    fast.model.rcnn.proposals.total_max_detections = FAST_PARITY_DETECTIONS
+    rng = np.random.default_rng(SEED + 16)
+    frcnn_images = [rng.integers(0, 256, (150, 210, 3), dtype=np.uint8)
+                    for _ in range(2)]
+    ssd_fast = apply_serving_profile(config, "fast")
+    ssd_variables = single_tap_ssd_float_stage(init_variables(config, SEED),
+                                               SEED)
+    ssd_requests = [rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)
+                    for _ in range(2)]
+    for name, cfg, variables, requests, box_atol, prob_atol, share in (
+            ("frcnn", fast, small_variables, frcnn_images, FAST_BOX_ATOL,
+             FAST_PROB_ATOL, FAST_PAIRED_SHARE),
+            ("ssd", ssd_fast, ssd_variables, ssd_requests,
+             SSD_FAST_BOX_ATOL, PROB_ATOL, 1.0)):
+        results, stats, networks = [], [], []
+        for on in ("cpu", device):
+            # SSD's float stage exact on the card too (see above).
+            with torch.backends.cudnn.flags(enabled=name == "frcnn"):
+                networks.append(PredictorNetwork(cfg, variables=variables,
+                                                 device=on))
+                results.append(networks[-1].predict_batch(requests))
+            stats.append({k: float(v) for k, v in flax_variables_from_torch(
+                networks[-1]._model).items() if k.startswith("int8_stats/")})
+        if name == "frcnn":
+            numbers["frcnn_fast_tail_on_served_features_bitwise"] = (
+                hold_tail_on_served_features(*networks, requests))
+        want_stats, got_stats = stats
+        scale_err = max(abs(got_stats[k] - v) / abs(v)
+                        for k, v in want_stats.items())
+        rtol = FAST_SCALE_RTOL if name == "frcnn" else 0.0
+        if set(got_stats) != set(want_stats) or scale_err > rtol:
+            raise AssertionError(f"[int8-parity] {name} fast: calibrated "
+                                 f"maxima rel err {scale_err} (bound {rtol})")
+        box_err, detections, unpaired = 0.0, 0, 0
+        for want, got in zip(*results):
+            err, left = paired(f"{name} fast", got, want, box_atol,
+                               prob_atol, share)
+            box_err, unpaired = max(box_err, err), unpaired + left
+            detections += len(want)
+        numbers.update({f"{name}_fast_detections": detections,
+                        f"{name}_fast_unpaired": unpaired,
+                        f"{name}_fast_scale_rel_err": f"{scale_err:.2e}",
+                        f"{name}_fast_box_max_err_px": box_err})
+    phase("int8-parity", dtype="float32", tf32=False,
+          flip_bound=INT8_FLIP_BOUND, **numbers)
+
+
+def fast_config(path):
+    """The config of ``path`` under the ``fast`` serving profile."""
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.serving import apply_serving_profile
+
+    return apply_serving_profile(get_config(path), "fast")
+
+
+def forward_pair(networks, batch, canvas):
+    """Device ms of each network's forward on one uploaded uint8 batch,
+    in turns (a, b, b, a), and each one's peak memory in GB."""
+    import numpy as np
+    import torch
+
+    images = torch.from_numpy(np.random.default_rng(SEED + 17).integers(
+        0, 256, (batch,) + tuple(canvas) + (3,), dtype=np.uint8)).to(
+        networks[0].device)
+    im_shape = torch.tensor([canvas] * batch, dtype=torch.float32,
+                            device=images.device)
+    times = {i: [] for i in range(len(networks))}
+    peaks = {}
+    for i in (0, 1, 1, 0):
+        torch.cuda.reset_peak_memory_stats()
+        times[i].append(cuda_ms(lambda: networks[i].forward(images,
+                                                            im_shape),
+                                5, warmup=1))
+        peaks[i] = torch.cuda.max_memory_allocated() / 1e9
+    return [sum(t) / len(t) for t in times.values()], [peaks[0], peaks[1]]
+
+
+def fast_serve(device, card, accurate):
+    """[fast-serve]: the ``fast`` profile at full width (R101, 80 classes,
+    bf16, b8 608x800, uint8 transfer, RPN 6000/1000, ``int8_tail`` with
+    static scales calibrated at load) through ``PredictorNetwork``: one
+    warm-up and three measured batches of 8 480x640 images and one
+    single image, K1 twice and K2 once per forward; one more batch with
+    K1 (RPN G=8 N=6000 keep 1000, per class G=640 N<=512) and K2 (R=1000)
+    held against their plain versions on its own tensors; then the device
+    time of its forward beside [serve]'s ``accurate`` forward in turns on
+    one uploaded batch, with each one's peak memory."""
+    import numpy as np
+    from luminoth_tpu_torch.utils.predicting import PredictorNetwork
+    from luminoth_tpu_torch.utils.weights import init_variables
+
+    path = serve_config("resnet_v1_101", 80, "bfloat16", CANVAS)
+    config = fast_config(path)
+    t0 = time.perf_counter()
+    network = PredictorNetwork(config, variables=init_variables(
+        config, SEED), device=device)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 18)
+    requests = [[rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+                 for _ in range(BATCH)] for _ in range(4)]
+    single = rng.integers(0, 256, (600, 800, 3), dtype=np.uint8)
+    network.predict_batch(requests[0])  # warm-up
+    counts = {}
+    read = path_launches()
+    with counting_k2_k3(counts):
+        latencies, results = [], []
+        for batch in requests[1:]:
+            t = time.perf_counter()
+            results.extend(network.predict_batch(batch))
+            latencies.append(time.perf_counter() - t)
+        results.append(network.predict_image(single))
+        launches = read()
+    forwards = len(requests)
+    check_forwards("fast-serve", launches, forwards)
+    if counts["k3"]:
+        raise AssertionError(f"[fast-serve] K3 launched {counts['k3']} times")
+    detections = check_detections("fast-serve", results, 80, 300, 0.0)
+
+    k1s, k2s, survivors = [], [], []
+    with capturing_k1(k1s), capturing_k2(k2s):
+        network.predict_batch(requests[1])
+    shapes = [(c[0].shape[0], c[0].shape[1], c[3]) for c in k1s]
+    rpn, anchors = config.model.rpn.proposals, config.model.anchors
+    candidates = min(rpn.pre_nms_top_n, len(anchors.ratios)
+                     * len(anchors.scales)
+                     * math.ceil(CANVAS[0] / anchors.stride)
+                     * math.ceil(CANVAS[1] / anchors.stride))
+    if shapes[0] != (BATCH, candidates, rpn.post_nms_top_n) or len(
+            shapes) != 2 or len(k2s) != 1:
+        raise AssertionError(f"[fast-serve] K1 at {shapes}, K2 "
+                             f"{len(k2s)} launches")
+    k1_rpn = hold_k1(k1s[:1], "fast-serve", survivors=survivors)
+    k1_class = hold_k1(k1s[1:], "fast-serve", survivors=survivors)
+    k2_errors = []
+    k2 = hold_k2(k2s, "fast-serve", errors=k2_errors, library=True)
+    (accurate_ms, fast_ms), (accurate_gb, fast_gb) = forward_pair(
+        [accurate, network], BATCH, CANVAS)
+    phase("fast-serve", model="resnet_v1_101", classes=80, dtype="bfloat16",
+          canvas=f"{CANVAS[0]}x{CANVAS[1]}", batch=BATCH, transfer="uint8",
+          rpn=f"{rpn.pre_nms_top_n}/{rpn.post_nms_top_n}", int8="tail",
+          forwards=forwards, k1_launches=launches["k1"],
+          k2_launches=launches["k2"], k3_launches=counts["k3"],
+          detections=detections, setup_s=f"{setup_s:.1f}",
+          calibration_s=f"{network.int8_calibration_s:.2f}",
+          request_latency_ms="/".join(f"{1000 * t:.1f}" for t in latencies),
+          forward_ms=f"{fast_ms:.2f}",
+          images_per_s=f"{1000 * BATCH / fast_ms:.2f}",
+          accurate_forward_ms=f"{accurate_ms:.2f}",
+          peak_gb=f"{fast_gb:.1f}", accurate_peak_gb=f"{accurate_gb:.1f}",
+          k1_rpn=f"{shapes[0][0]}x{shapes[0][1]}", k1_rpn_equal=True,
+          k1_rpn_survivors=survivors[0], k1_rpn_ms=f"{k1_rpn[0]:.4f}",
+          k1_rpn_plain_ms=f"{k1_rpn[1]:.4f}",
+          k1_rpn_bound_ms=f"{k1_rpn[2]:.4f}",
+          k1_class=f"{shapes[1][0]}x{shapes[1][1]}", k1_class_equal=True,
+          k1_class_ms=f"{k1_class[0]:.4f}",
+          k1_class_plain_ms=f"{k1_class[1]:.4f}",
+          k1_class_bound_ms=f"{k1_class[2]:.4f}",
+          k2_rois=k2s[0][1].shape[1], k2_max_abs_err=k2_errors[0],
+          k2_ms=f"{k2['ms']:.4f}", k2_plain_ms=f"{k2['plain_ms']:.4f}",
+          k2_bound_ms=f"{k2['bound_ms']:.4f}",
+          k2_library_ms=f"{k2['library_ms']:.4f}", card=f"'{card}'")
+    k1_times = {(BATCH, candidates, "fast forward"): k1_rpn,
+                (shapes[1][0], shapes[1][1], "fast forward"): k1_class}
+    return {**launches, **counts}, k1_times, {
+        "rois": k2s[0][1].shape[1], "on": "fast forward",
+        "max_abs_err": k2_errors[0], **k2}
+
+
+def ssd_fast_serve(device, card):
+    """[ssd-fast-serve]: SSD300 under the ``fast`` profile (``int8_trunk``
+    with static scales calibrated at load), bf16, uint8, 20 classes, the
+    heads of [ssd-serve], through ``PredictorNetwork``; at b32 and b128 a
+    warm-up, then one measured batch of 375x500 images with K1 once (G=B,
+    N=1000) held against its plain version on its own tensors, and the
+    device time of its forward beside the float (``accurate``) network's
+    in turns on one uploaded batch. K2 and K3 must not launch."""
+    import numpy as np
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.predicting import PredictorNetwork
+
+    path = ssd_config("ssd_serve", SSD_CLASSES, "bfloat16",
+                      dataset={"transfer_dtype": "uint8"})
+    variables = rescaled_ssd_variables(get_config(path), device)
+    accurate = PredictorNetwork(get_config(path), variables=variables,
+                                device=device)
+    t0 = time.perf_counter()
+    network = PredictorNetwork(fast_config(path), variables=variables,
+                               device=device)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 19)
+    launches, counts, k1_times = 0, {}, {}
+    for batch in SSD_SERVE_BATCHES:
+        images = [rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+                  for _ in range(batch)]
+        network.predict_batch(images)  # warm-up
+        captured = []
+        with capturing_k1(captured) as k1, counting_k2_k3(counts):
+            t = time.perf_counter()
+            results = network.predict_batch(images)
+            request_s = time.perf_counter() - t
+        shapes = [tuple(c[0].shape[:2]) + (c[3],) for c in captured]
+        if k1.launches != 1 or shapes != [(batch, 1000, 100)]:
+            raise AssertionError(f"[ssd-fast-serve] b{batch}: K1 launched "
+                                 f"{k1.launches} times at {shapes}")
+        launches += k1.launches
+        detections = check_detections("ssd-fast-serve", results,
+                                      SSD_CLASSES, 100, 0.5)
+        if detections == 0:
+            raise AssertionError(f"[ssd-fast-serve] b{batch}: no detection")
+        k1_times[(batch, 1000, "ssd fast forward")] = k1 = hold_k1(
+            captured, "ssd-fast-serve")
+        (accurate_ms, fast_ms), (accurate_gb, fast_gb) = forward_pair(
+            [accurate, network], batch, (SSD_SIZE, SSD_SIZE))
+        phase("ssd-fast-serve", model="ssd_vgg16", classes=SSD_CLASSES,
+              dtype="bfloat16", canvas=f"{SSD_SIZE}x{SSD_SIZE}", batch=batch,
+              transfer="uint8", int8="trunk", k1_launches=1,
+              k1_shape=f"{batch}x1000", k1_equal=True,
+              k1_valid_per_group=valid_per_group(captured),
+              detections=detections, forward_ms=f"{fast_ms:.2f}",
+              images_per_s=f"{1000 * batch / fast_ms:.2f}",
+              accurate_forward_ms=f"{accurate_ms:.2f}",
+              peak_gb=f"{fast_gb:.1f}", accurate_peak_gb=f"{accurate_gb:.1f}",
+              request_ms=f"{1000 * request_s:.1f}",
+              calibration_s=f"{network.int8_calibration_s:.2f}",
+              setup_s=f"{setup_s:.1f}", k1_ms=f"{k1[0]:.4f}",
+              k1_plain_ms=f"{k1[1]:.4f}", k1_bound_ms=f"{k1[2]:.4f}",
+              card=f"'{card}'")
+    no_k2_k3("ssd-fast-serve", counts)
+    return {"k1": launches, **counts}, k1_times
+
+
+def fast_predict_phase(device):
+    """[fast-predict]: a one-image request through the ``predict`` command
+    with ``--profile fast`` from [train]'s and [ssd-train]'s checkpoints
+    (the predictor calibrates at load: two forwards each). SSD's 1x1 map
+    has one row, padded to 17 for ``torch._int_mm``."""
+    import numpy as np
+    from click.testing import CliRunner
+    from PIL import Image
+    from luminoth_tpu_torch import predict as predictor
+
+    image = os.path.join(BUILD, "fast_predict.jpg")
+    Image.fromarray(np.random.default_rng(SEED + 20).integers(
+        0, 256, (480, 640, 3), dtype=np.uint8)).save(image, quality=90)
+    ssd_path = ssd_config("ssd_fast_predict", SSD_CLASSES, "bfloat16",
+                          train={"job_dir": os.path.join(BUILD, "jobs"),
+                                 "run_name": "ssd"})
+    total = {}
+    for name, path, per_forward in (
+            ("fasterrcnn", checkpoint_config("fast_predict"),
+             {"k1": 2, "k2": 1, "k3": 0}),
+            ("ssd", ssd_path, {"k1": 1, "k2": 0, "k3": 0})):
+        out = os.path.join(BUILD, f"fast_predict_{name}.jsonl")
+        counts = {}
+        read = path_launches()
+        with counting_k2_k3(counts):
+            result = CliRunner().invoke(predictor.predict, [
+                image, "-c", path, "--min-prob", "0", "--profile", "fast",
+                "--device", str(device), "-f", out])
+        launches = {"k1": read()["k1"], **counts}
+        if result.exit_code != 0:
+            raise AssertionError(f"[fast-predict] {name}: exit "
+                                 f"{result.exit_code}: {result.output}"
+                                 ) from result.exception
+        if launches != {k: 2 * v for k, v in per_forward.items()}:
+            raise AssertionError(f"[fast-predict] {name}: launches "
+                                 f"{launches} over the calibration and the "
+                                 f"request (want {per_forward} each)")
+        with open(out) as f:
+            lines = [json.loads(line) for line in f]
+        if len(lines) != 1 or not lines[0]["objects"]:
+            raise AssertionError(f"[fast-predict] {name}: {lines}")
+        classes = 80 if name == "fasterrcnn" else SSD_CLASSES
+        check_detections("fast-predict", [lines[0]["objects"]], classes,
+                         300, 0.0)
+        phase("fast-predict", model=name, image="480x640",
+              detections=len(lines[0]["objects"]),
+              k1_launches=launches["k1"], k2_launches=launches["k2"],
+              k3_launches=launches["k3"])
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def unit_scale(grad):
     """The power of two (exact in bf16) that brings the largest magnitude
     of the cotangents ``grad`` into [1, 2)."""
@@ -2093,6 +2737,8 @@ def main():
     check_ssd_parity(device)
     served, detector = serve(device, card)
     recheck_on_served_tensors(detector, device)
+    fast, fast_k1, fast_k2 = fast_serve(device, card, detector._network)
+    k1_times.update(fast_k1)
     del detector
     torch.cuda.empty_cache()
     check_train_parity(device)
@@ -2100,7 +2746,7 @@ def main():
     k3_err = max(k3_err, recheck_k3_on_trained_tensors(captured))
     del captured
     torch.cuda.empty_cache()
-    paths = {"serve": served, "train": trained,
+    paths = {"serve": served, "fast": fast, "train": trained,
              "eval": eval_phase(device, card)}
     check_eval_parity(device)
     paths["predict"] = predict_phase(device)
@@ -2109,8 +2755,14 @@ def main():
     torch.cuda.empty_cache()
     paths["ssd_serve"], _ = ssd_serve(device, card)
     torch.cuda.empty_cache()
+    paths["ssd_fast"], ssd_fast_k1 = ssd_fast_serve(device, card)
+    k1_times.update(ssd_fast_k1)
+    torch.cuda.empty_cache()
     paths["ssd_train"] = ssd_train(device, card)
     paths["ssd_eval"] = ssd_eval(device, card)
+    paths["fast_predict"] = fast_predict_phase(device)
+    torch.cuda.empty_cache()
+    check_int8_parity(device)
 
     rpn_ms, rpn_plain_ms, rpn_bound_ms, rpn_bound_by = k1_times[(8, 12000)]
     k3_ms, k3_plain_ms, k3_bound_ms, k3_bound_by = k3_times["bfloat16"]
@@ -2128,17 +2780,20 @@ def main():
          "max_abs_err": k1_err, "ms": rpn_ms, "plain_ms": rpn_plain_ms,
          "bound_ms": rpn_bound_ms, "bound_by": rpn_bound_by,
          "library_ms": None,
-         "shapes": [{"groups": g, "candidates": n, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "shapes": [{"groups": key[0], "candidates": key[1],
+                     "on": key[2] if len(key) > 2 else "random groups",
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by}
-                    for (g, n), (ms, plain_ms, bound_ms, bound_by)
+                    for key, (ms, plain_ms, bound_ms, bound_by)
                     in k1_times.items()]},
         {"name": "roi_crop_pool", "route": "cuda",
          "source": "luminoth_tpu_torch/csrc/roi_align.cu",
          "replaces": "luminoth_tpu/ops/pallas/roi_align_kernel.py:351",
          "launches": sum(by_path("k2").values()),
          "launches_by_path": by_path("k2"),
-         "max_abs_err": k2_err, **k2},
+         "max_abs_err": max(k2_err, fast_k2["max_abs_err"]), **k2,
+         "shapes": [{"rois": K2_SHAPE[1], "on": "random boxes",
+                     "max_abs_err": k2_err, **k2}, fast_k2]},
         {"name": "roi_crop_pool_backward", "route": "cuda",
          "source": "luminoth_tpu_torch/csrc/roi_align.cu",
          "replaces": "luminoth_tpu/ops/pallas/roi_align_kernel.py:189",

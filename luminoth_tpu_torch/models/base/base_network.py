@@ -4,7 +4,12 @@
 RGB-mean subtraction comes first, in float32; the trunk stops at the
 detection endpoint (``block3`` at output stride 16) and ``block4`` runs
 as the ROI tail. The port has the ResNet v1 family; the other
-architectures and the int8 serving profiles raise ``NotImplementedError``.
+architectures and ``torchvision_compat`` raise ``NotImplementedError``.
+
+The int8 serving profiles (``int8_trunk``, ``int8_tail``, with
+``int8_static`` for calibrated activation scales) build the twins of
+``quantized_tail.py``: the same parameters, int8 outside training and the
+float path in it (the flags are inert in training, as in JAX).
 
 Training keeps batch norm in its inference form (``train_batch_norm:
 False``, the detection default): the running statistics stay fixed and
@@ -16,6 +21,10 @@ ported; :func:`check_trainable_config` raises for them.
 import torch
 from torch import nn
 
+from luminoth_tpu_torch.models.base.quantized_tail import (
+    Int8ResNetTail,
+    Int8ResNetTrunk,
+)
 from luminoth_tpu_torch.models.base.resnet import ResNet, ResNetTail
 
 _R_MEAN = 123.68
@@ -56,11 +65,11 @@ def _parse_architecture(config):
         raise NotImplementedError(
             f"{architecture} is not ported to PyTorch yet (ResNet v1 is)"
         )
-    for flag in ("torchvision_compat", "int8_trunk", "int8_tail"):
-        if config.get(flag):
-            raise NotImplementedError(
-                f"model.base_network.{flag} is not ported to PyTorch yet"
-            )
+    if config.get("torchvision_compat"):
+        raise NotImplementedError(
+            "model.base_network.torchvision_compat is not ported to PyTorch "
+            "yet"
+        )
     depth = int(architecture.rsplit("_", 1)[1])
     endpoint = config.get("endpoint") or DEFAULT_ENDPOINTS[architecture]
     return architecture, depth, endpoint
@@ -83,11 +92,22 @@ class TruncatedBaseNetwork(nn.Module):
         super().__init__()
         self.architecture, depth, endpoint = _parse_architecture(config)
         self.dtype = dtype
-        self.add_module(self.architecture, ResNet(
-            depth=depth,
-            output_stride=config.get("output_stride"),
-            endpoint=endpoint,
-        ))
+        self.int8 = bool(config.get("int8_trunk"))
+        if self.int8:
+            trunk = Int8ResNetTrunk(
+                depth=depth,
+                output_stride=config.get("output_stride"),
+                endpoint=endpoint,
+                static_scales=bool(config.get("int8_static")),
+                dtype=dtype,
+            )
+        else:
+            trunk = ResNet(
+                depth=depth,
+                output_stride=config.get("output_stride"),
+                endpoint=endpoint,
+            )
+        self.add_module(self.architecture, trunk)
 
     @property
     def out_channels(self):
@@ -96,7 +116,10 @@ class TruncatedBaseNetwork(nn.Module):
     def forward(self, images):
         """(B, H, W, 3) raw-scale images -> (B, H', W', C) NHWC map."""
         x = subtract_channel_means(images).permute(0, 3, 1, 2)
-        x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
+        # the int8 trunk takes the float32 batch (its root conv is float32)
+        dtype = torch.float32 if self.int8 and not self.training else (
+            self.dtype)
+        x = x.to(dtype=dtype, memory_format=torch.channels_last)
         return getattr(self, self.architecture)(x).permute(0, 2, 3, 1)
 
 
@@ -110,7 +133,12 @@ class BaseNetworkTail(nn.Module):
         self.out_channels = depth_in
         if self.use_tail:
             self.architecture, depth, _ = _parse_architecture(config)
-            tail = ResNetTail(depth=depth, depth_in=depth_in)
+            if config.get("int8_tail"):
+                tail = Int8ResNetTail(
+                    depth=depth, depth_in=depth_in,
+                    static_scales=bool(config.get("int8_static")))
+            else:
+                tail = ResNetTail(depth=depth, depth_in=depth_in)
             self.add_module(self.architecture, tail)
             self.out_channels = tail.out_channels
 

@@ -137,11 +137,12 @@ def _plan_units(block_defs, output_stride):
     return plan
 
 
-def _make_block(depth_in, units):
-    """A ``ModuleDict`` of ``unit_<u>`` bottlenecks; returns it and depth."""
+def _make_block(depth_in, units, unit=BottleneckV1):
+    """A ``ModuleDict`` of ``unit_<u>`` bottlenecks built by ``unit``;
+    returns it and depth."""
     block = nn.ModuleDict()
     for u, (base_depth, stride, rate) in enumerate(units, start=1):
-        block[f"unit_{u}"] = BottleneckV1(
+        block[f"unit_{u}"] = unit(
             depth_in, base_depth * 4, base_depth, stride, rate
         )
         depth_in = base_depth * 4
@@ -154,7 +155,8 @@ class ResNet(nn.Module):
     Takes and returns NCHW tensors (channels_last on the serving path).
     """
 
-    def __init__(self, depth=101, output_stride=None, endpoint="block3"):
+    def __init__(self, depth=101, output_stride=None, endpoint="block3",
+                 unit=BottleneckV1):
         super().__init__()
         self.conv1, self.conv1_pad = conv2d_same(3, 64, 7, 2, 1)
         self.conv1_bn = BatchNorm(64)
@@ -167,7 +169,7 @@ class ResNet(nn.Module):
         self.block_names = names[:names.index(endpoint) + 1]
         depth_in = 64
         for name, units in plan[:len(self.block_names)]:
-            block, depth_in = _make_block(depth_in, units)
+            block, depth_in = _make_block(depth_in, units, unit)
             self.add_module(name, block)
         self.out_channels = depth_in
 
@@ -185,11 +187,11 @@ class ResNet(nn.Module):
 class ResNetTail(nn.Module):
     """``block4`` run over pooled ROI crops: three stride-1 bottlenecks."""
 
-    def __init__(self, depth=101, depth_in=1024):
+    def __init__(self, depth=101, depth_in=1024, unit=BottleneckV1):
         super().__init__()
         base_depth, num_units, _ = RESNET_BLOCK_DEFS[depth][-1]
         self.block4, self.out_channels = _make_block(
-            depth_in, [(base_depth, 1, 1)] * num_units
+            depth_in, [(base_depth, 1, 1)] * num_units, unit
         )
 
     def forward(self, x):

@@ -11,14 +11,23 @@ takes 18 → 9 with (0, 1) rows and columns, conv9_2 9 → 5 with (1, 1);
 conv10_2 and conv11_2 are ``VALID``. pool5 is a 3x3 stride-1 ``SAME``
 max-pool, whose padding counts as -inf.
 
-The int8 serving twin (``int8_trunk``) is not ported and raises.
+With ``int8_trunk`` (the ``fast`` serving profile) the extractor runs the
+int8 twin outside training: ``quantized_extractor.Int8VGG16`` and int8
+extras (quant points ``conv6_amax`` .. ``conv11_2_amax`` on this module),
+conv4_3's normalisation in float32, every map cast to the model's dtype at
+the end. In training the float path runs.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from luminoth_tpu_torch.models.base.quantized_tail import Int8Points, int8_conv
 from luminoth_tpu_torch.models.base.vgg import VGG16, TFConv2d
+from luminoth_tpu_torch.models.ssd.quantized_extractor import (
+    Int8VGG16,
+    _nhwc_pool,
+)
 
 # (name, input channels, features, kernel, stride, dilation, padding); a
 # feature map is taken after each of conv7 .. conv11_2.
@@ -57,7 +66,7 @@ class L2Normalize(nn.Module):
         return (x32 / norm * gamma).to(x.dtype)
 
 
-class SSDFeatureExtractor(nn.Module):
+class SSDFeatureExtractor(Int8Points, nn.Module):
     """Truncated VGG-16 trunk and SSD's extra feature layers."""
 
     def __init__(self, config):
@@ -66,10 +75,12 @@ class SSDFeatureExtractor(nn.Module):
         if architecture != "truncated_vgg_16":
             raise ValueError(
                 'Invalid SSD architecture "{}"'.format(architecture))
-        if config.get("int8_trunk"):
-            raise NotImplementedError(
-                "model.base_network.int8_trunk is not ported to PyTorch yet")
-        self.vgg_16 = VGG16(truncated=True)
+        self.int8 = bool(config.get("int8_trunk"))
+        static = self.int8 and bool(config.get("int8_static"))
+        self.vgg_16 = (Int8VGG16(static) if self.int8
+                       else VGG16(truncated=True))
+        self._setup_int8([f"{name}_amax" for name, *_ in _EXTRAS]
+                         if self.int8 else [], static)
         self.conv4_3_norm = L2Normalize(512)
         for name, cin, cout, kernel, stride, rate, padding in _EXTRAS:
             self.add_module(name, TFConv2d(cin, cout, kernel, stride=stride,
@@ -80,6 +91,8 @@ class SSDFeatureExtractor(nn.Module):
     def forward(self, x):
         """NCHW mean-subtracted images in the compute dtype → the list of
         six NCHW feature maps."""
+        if self.int8 and not self.training:
+            return self._int8_maps(x)
         _, endpoints = self.vgg_16(x)
         feature_maps = [self.conv4_3_norm(endpoints["conv4/conv4_3"])]
         net = F.max_pool2d(endpoints["conv5/conv5_3"], 3, stride=1,
@@ -89,3 +102,16 @@ class SSDFeatureExtractor(nn.Module):
             if name in _MAP_AFTER:
                 feature_maps.append(net)
         return feature_maps
+
+    def _int8_maps(self, x):
+        """The int8 recomputation of :meth:`forward`'s float path (the JAX
+        ``_int8_maps``): NCHW maps in ``x``'s dtype."""
+        conv4_3, net = self.vgg_16.int8_forward(x)
+        feature_maps = [self.conv4_3_norm(conv4_3.permute(0, 3, 1, 2))]
+        net = _nhwc_pool(net, 3, 1, padding=1)
+        for name, *_, padding in _EXTRAS:
+            net = int8_conv(self, name, getattr(self, name), net,
+                            padding.lower(), f"{name}_amax").relu_()
+            if name in _MAP_AFTER:
+                feature_maps.append(net.permute(0, 3, 1, 2))
+        return [fm.to(x.dtype) for fm in feature_maps]

@@ -257,8 +257,9 @@ def stop_server(httpd):
 @click.option(
     "--profile", default="accurate",
     type=click.Choice(["accurate", "fast"]),
-    help="Serving profile (see utils/serving.py:apply_serving_profile; "
-         "'fast' needs int8, not ported).")
+    help="Serving profile: 'fast' = uint8 transfer, the 6000/1000 "
+         "proposal budget and int8 with calibrated scales (see "
+         "utils/serving.py:apply_serving_profile).")
 @click.option(
     "--device", default=None,
     help="Torch device (default: the current CUDA device).")

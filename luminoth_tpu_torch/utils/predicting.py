@@ -11,12 +11,17 @@ Weights come from ``variables`` or, without them, from the newest
 training checkpoint under ``train.job_dir`` (the port's ``.pt`` or the JAX
 package's ``.msgpack``, see :func:`load_checkpoint_variables`).
 
+With ``model.base_network.int8_static`` (the ``fast`` profile) the int8
+activation scales are calibrated once at load, as the JAX predictor does,
+unless the variables carry the JAX package's ``int8_stats``.
+
 Not ported (they work around XLA compilation or the TPU mesh): the AOT
 executable cache, the persistent compile cache and the device mesh.
 """
 
 import logging
 import os
+import time
 
 import numpy as np
 import torch
@@ -26,7 +31,13 @@ from luminoth_tpu_torch.datasets.object_detection_dataset import (
     pad_to_canvas,
     preprocess_image,
 )
+from luminoth_tpu_torch.io import read_image
 from luminoth_tpu_torch.models import get_model
+from luminoth_tpu_torch.models.base.quantized_tail import (
+    calibrating,
+    int8_modules,
+    needs_calibration,
+)
 from luminoth_tpu_torch.utils.checkpoint_io import (
     CheckpointManager,
     load_model_weights,
@@ -128,6 +139,53 @@ class PredictorNetwork:
         self._transfer_dtype = (
             np.uint8 if transfer == "uint8" else np.float32
         )
+        # Seconds the int8 calibration took at load (None: not run).
+        self.int8_calibration_s = None
+        if needs_calibration(self._model):
+            t0 = time.perf_counter()
+            self._calibrate_int8()
+            self.int8_calibration_s = time.perf_counter() - t0
+
+    @torch.inference_mode()
+    def _calibrate_int8(self):
+        """One activation-range calibration for ``int8_static`` serving
+        (the JAX ``PredictorNetwork._calibrate_int8``).
+
+        Runs the int8 forward with every static quant point recording its
+        running ``max|x|`` (the forward itself quantizes dynamically); the
+        served forwards then use those static scales. The inputs are the
+        files of ``model.base_network.int8_calibration_images``, one at a
+        time through the real preprocessing, or else one synthetic canvas
+        (the JAX predictor's: ``RandomState(0).randint(0, 255, (1, h, w,
+        3))``), fine for bring-up; calibrate on real data for
+        accuracy-sensitive serving.
+        """
+        h, w = self._canvas
+        batches = []
+        for path in (self._config.model.base_network.get(
+                "int8_calibration_images") or []):
+            result = preprocess_image(
+                self._config, read_image(path).astype(np.float32))
+            padded, (ih, iw) = pad_to_canvas(result["image"], self._canvas)
+            batches.append((padded[None], [[float(ih), float(iw)]]))
+        if not batches:
+            logger.info(
+                "int8_static: calibrating on a synthetic canvas (set "
+                "model.base_network.int8_calibration_images for real-"
+                "data ranges).")
+            rng = np.random.RandomState(0)
+            batches = [(rng.randint(0, 255, (1, h, w, 3)).astype(np.float32),
+                        [[float(h), float(w)]])]
+        with calibrating(self._model):
+            for image, im_shape in batches:
+                self._model(torch.from_numpy(image).to(self.device),
+                            im_shape=torch.tensor(im_shape,
+                                                  device=self.device))
+        logger.info(
+            "int8_static: calibrated %d activation scale(s) over %d "
+            "image(s)", sum(len(m.quant_points)
+                            for m in int8_modules(self._model)),
+            len(batches))
 
     @torch.inference_mode()
     def forward(self, images, im_shape):

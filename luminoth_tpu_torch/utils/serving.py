@@ -25,9 +25,10 @@ def apply_serving_profile(config, profile):
       * ``dataset.transfer_dtype=uint8`` (pixels cast back on the device);
       * Faster R-CNN proposal budget 6000/1000 instead of 12000/2000;
       * int8 with static calibrated activation scales (``int8_tail`` for
-        Faster R-CNN, ``int8_trunk`` otherwise, and ``int8_static``).
-        The port has no int8 path yet: building the model then raises
-        ``NotImplementedError``.
+        Faster R-CNN, ``int8_trunk`` otherwise, and ``int8_static``; see
+        ``models/base/quantized_tail.py``). ``PredictorNetwork``
+        calibrates at load; set ``model.base_network.
+        int8_calibration_images`` for real-data activation ranges.
     """
     if profile in (None, "", "accurate"):
         return config

@@ -14,6 +14,13 @@ plus two layout changes:
 A flax module name may hold a ``/`` (VGG's ``conv1/conv1_1``): the port
 nests it (``conv1.conv1_1``), so the flat paths of both sides agree.
 
+The JAX package's ``int8_stats`` collection (the calibrated ``max|x|`` of
+each int8 quant point, ``int8_stats/<path>/<point>_amax`` scalars) maps to
+the non-persistent buffers of the port's int8 twins
+(``models/base/quantized_tail.py``), which the state dict does not hold:
+:func:`load_flax_variables` puts them in, and
+:func:`flax_variables_from_torch` gives them back once calibrated.
+
 :func:`init_variables` draws random variables in the flax layout with the
 JAX model's initializers, for runs that have no JAX (the weights then go
 through the same bridge). :func:`flax_variables_from_torch` is the way
@@ -27,9 +34,15 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from luminoth_tpu_torch.models.base.quantized_tail import (
+    Int8Points,
+    int8_modules,
+    load_int8_stats,
+)
 from luminoth_tpu_torch.models.base.resnet import BatchNorm
 
-_COLLECTIONS = ("params", "batch_stats")
+_COLLECTIONS = ("params", "batch_stats", "int8_stats")
+_INT8_STATS = "int8_stats/"
 _FLAX_TO_TORCH_LEAF = {
     "kernel": "weight",
     "scale": "weight",
@@ -74,6 +87,8 @@ def torch_key(flax_path):
     collection, *parts = flax_path.split("/")
     if collection not in _COLLECTIONS or len(parts) < 2:
         raise KeyError(f"not a flax variable path: {flax_path!r}")
+    if collection == "int8_stats":  # a quant point keeps its name
+        return ".".join(parts)
     *modules, leaf = parts
     if leaf not in _FLAX_TO_TORCH_LEAF:
         raise KeyError(f"unknown flax leaf {leaf!r} in {flax_path!r}")
@@ -103,9 +118,14 @@ def torch_state_from_flax(variables):
 def load_flax_variables(model, variables):
     """Load flax-layout variables into ``model``; every key must match.
 
-    Raises on a missing or left-over key and on a shape mismatch.
+    Raises on a missing or left-over key and on a shape mismatch. An
+    ``int8_stats`` collection must name every static quant point of the
+    model; a model without static quant points ignores it, as flax does.
     """
-    state = torch_state_from_flax(variables)
+    flat = flatten_variables(variables)
+    stats = {path: flat.pop(path) for path in list(flat)
+             if path.startswith(_INT8_STATS)}
+    state = torch_state_from_flax(flat)
     expected = model.state_dict()
     missing = sorted(set(expected) - set(state))
     extra = sorted(set(state) - set(expected))
@@ -117,6 +137,9 @@ def load_flax_variables(model, variables):
             f"({len(extra)})"
         )
     model.load_state_dict(state, strict=True)
+    if stats and any(m.static_scales for m in int8_modules(model)):
+        load_int8_stats(model, {torch_key(path): np.float32(value)
+                                for path, value in stats.items()})
     return model
 
 
@@ -128,12 +151,18 @@ def flax_paths(model):
     ``batch_stats/<path>/BatchNorm/{mean,var}``; convs and dense layers
     map ``weight``/``bias`` to ``params/<path>/{kernel,bias}``; a
     module's own parameter named ``gamma`` (SSD's L2 normalisation) maps to
-    ``params/<path>/gamma``.
+    ``params/<path>/gamma``. The quant points of a static int8 twin map
+    ``<point>`` to ``int8_stats/<path>/<point>`` (buffers outside the
+    state dict).
     """
     paths = {}
     for name, module in model.named_modules():
         prefix = f"{name}." if name else ""
         path = name.replace(".", "/")
+        if isinstance(module, Int8Points) and module.static_scales:
+            for point in module.quant_points:
+                paths[prefix + point] = "/".join(
+                    part for part in ("int8_stats", path, point) if part)
         if isinstance(module, BatchNorm):
             for attr, (collection, leaf) in _BN_TO_FLAX.items():
                 paths[prefix + attr] = f"{collection}/{path}/BatchNorm/{leaf}"
@@ -152,20 +181,29 @@ def flax_variables_from_torch(model):
 
     The inverse of :func:`torch_state_from_flax`: conv kernels OIHW → HWIO,
     dense kernels (out, in) → (in, out). ``np.savez(path, **result)``
-    writes the ``.npz`` layout both packages load.
+    writes the ``.npz`` layout both packages load. Calibrated quant points
+    come as ``int8_stats/...`` scalars.
     """
     state = model.state_dict()
     paths = flax_paths(model)
     missing = sorted(set(state) - set(paths))
     if missing:
         raise KeyError(f"no flax path for {missing[:5]} ({len(missing)})")
+    for prefix, module in model.named_modules():
+        if isinstance(module, Int8Points) and module.calibrated:
+            state.update((f"{prefix}.{point}" if prefix else point,
+                          getattr(module, point))
+                         for point in module.quant_points)
     flat = {}
     for key, path in paths.items():
+        if key not in state:  # a quant point not calibrated yet
+            continue
         value = state[key].detach().float().cpu().numpy()
         if path.endswith("/kernel"):
             value = (value.transpose(2, 3, 1, 0) if value.ndim == 4
                      else value.T)
-        flat[path] = np.ascontiguousarray(value)
+        # (np.ascontiguousarray makes a quant point's scalar 1-d.)
+        flat[path] = np.array(value, order="C")
     return flat
 
 
@@ -259,7 +297,7 @@ def init_variables(config, seed=0):
         model = get_model(config.model.type)(config)
     inits = _kernel_initializers(config.model)
     rng = np.random.default_rng(seed)
-    variables = {collection: {} for collection in _COLLECTIONS}
+    variables = {"params": {}, "batch_stats": {}}
 
     def put(collection, path, value):
         node = variables[collection]
@@ -270,6 +308,8 @@ def init_variables(config, seed=0):
 
     state = model.state_dict()
     for key, path in flax_paths(model).items():
+        if path.startswith(_INT8_STATS):  # calibrated at load, not drawn
+            continue
         collection, rest = path.split("/", 1)
         module_path, leaf = rest.rsplit("/", 1)
         shape = tuple(state[key].shape)

@@ -680,3 +680,122 @@ class TestSSDShapes:
                                    det_cpu[key][valid]), key
             assert float((det_card["objects"].cpu() - det_cpu["objects"])
                          [valid].abs().max()) <= 1e-4
+
+
+class TestInt8:
+    """The int8 serving path's products and layers on the card against the
+    CPU: ``torch._int_mm``'s shape rules, the padded rows, and bitwise
+    equality of codes, accumulators and epilogues."""
+
+    @pytest.mark.parametrize("m,k,n", [
+        (392, 1024, 512), (392, 4608, 512), (392, 512, 2048),  # the tail
+        (2592, 1152, 256), (41, 4608, 1024),  # SSD conv3_1, conv6 at b1
+    ])
+    def test_int_mm_equals_the_cpu(self, device, m, k, n):
+        from luminoth_tpu_torch.models.base import quantized_tail as pq
+
+        g = torch.Generator().manual_seed(m + k + n)
+        rows = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g)
+        got = pq.int8_mm(rows.to(device), w.to(device))
+        assert got.dtype == torch.int32 and got.is_cuda
+        assert torch.equal(got.cpu(), pq.int8_mm(rows, w))
+
+    @pytest.mark.parametrize("m", [1, 9, 16, 17])
+    def test_few_rows_are_padded(self, device, m):
+        """``torch._int_mm`` on CUDA takes more than 16 rows; ``int8_mm``
+        pads to ``MIN_ROWS`` and slices the padding off."""
+        from luminoth_tpu_torch.models.base import quantized_tail as pq
+
+        g = torch.Generator().manual_seed(m)
+        rows = torch.randint(-127, 128, (m, 128), dtype=torch.int8,
+                             generator=g).to(device)
+        w = torch.randint(-127, 128, (256, 128), dtype=torch.int8,
+                          generator=g).to(device)
+        if m <= 16:
+            with pytest.raises(RuntimeError, match="greater than 16"):
+                torch._int_mm(rows, w.t())
+        got = pq.int8_mm(rows, w)
+        assert got.shape == (m, 256)
+        assert torch.equal(got.cpu(), pq.int8_mm(rows.cpu(), w.cpu()))
+
+    def test_quantizers_and_epilogue_equal_the_cpu(self, device):
+        """Codes (a device-tensor division, half to even), folded and
+        quantized weights (made on the host) and the fused epilogue: the
+        same bits on the card."""
+        from luminoth_tpu_torch.models.base import quantized_tail as pq
+
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(4, 9, 11, 64, generator=g) * 30
+        for got, want in zip(pq.quantize_per_tensor(x.to(device)),
+                             pq.quantize_per_tensor(x)):
+            assert torch.equal(got.cpu(), want)
+        acc = torch.randint(-2 ** 26, 2 ** 26, (5000, 64), generator=g)
+        w_r = torch.rand(64, generator=g) + 0.1
+        bias = torch.randn(64, generator=g)
+        want = pq._epilogue(acc, torch.tensor(3.7), w_r, bias, (5000, 64))
+        got = pq._epilogue(acc.to(device), torch.tensor(3.7, device=device),
+                           w_r.to(device), bias.to(device), (5000, 64))
+        assert torch.equal(got.cpu(), want)
+        # One rounding: the float64 multiply-add rounded once to float32.
+        scale = w_r * (torch.tensor(3.7) * pq.INV_127_SQ)
+        fma = (acc.float().double() * scale.double() + bias.double()).float()
+        assert torch.equal(want, fma)
+
+    def test_int8_tail_equals_the_cpu(self, device):
+        """An R50 int8 tail with random batch norms, calibrated, then
+        static: outputs and maxima bitwise."""
+        import copy
+
+        from luminoth_tpu_torch.models.base import quantized_tail as pq
+
+        g = torch.Generator().manual_seed(1)
+        tail = pq.Int8ResNetTail(50, 256, static_scales=True).eval()
+        with torch.no_grad():
+            for m in tail.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    m.weight.normal_(0, 0.05, generator=g)
+                elif hasattr(m, "running_var"):
+                    m.running_var.uniform_(0.5, 1.5, generator=g)
+                    m.running_mean.normal_(0, 0.2, generator=g)
+        card = copy.deepcopy(tail).to(device)
+        x = torch.relu(torch.randn(6, 256, 7, 7, generator=g)).contiguous(
+            memory_format=torch.channels_last)
+        with torch.inference_mode():
+            with pq.calibrating(tail):
+                want = tail(x)
+            with pq.calibrating(card):
+                got = card(x.to(device))
+            assert torch.equal(got.cpu(), want)
+            for a, b in zip(card.buffers(), tail.buffers()):
+                assert torch.equal(a.cpu(), b)
+            assert torch.equal(card(x.to(device) * 0.7).cpu(), tail(x * 0.7))
+
+    def test_one_image_ssd_fast_forward(self, device):
+        """SSD under the ``fast`` profile on one image: conv10_2 and
+        conv11_2 have 9 and 1 rows, padded for the product; calibrated at
+        load on the card; K1 once, K2 never."""
+        from luminoth_tpu_torch.utils.config import (
+            Config,
+            get_base_config,
+            get_model_config,
+        )
+        from luminoth_tpu_torch.utils.predicting import PredictorNetwork
+        from luminoth_tpu_torch.utils.serving import apply_serving_profile
+        from luminoth_tpu_torch.utils.weights import init_variables
+
+        config = apply_serving_profile(get_model_config(
+            get_base_config("ssd"), Config(
+                {"model": {"network": {"num_classes": 3}}})), "fast")
+        network = PredictorNetwork(config, variables=init_variables(
+            config, 0), device=device)
+        assert network.int8_calibration_s is not None
+        image = np.random.RandomState(0).randint(
+            0, 256, (240, 320, 3)).astype(np.uint8)
+        nms.nms_alive_cuda.launches = roi_align.roi_crop_pool_cuda.launches = 0
+        objects = network.predict_image(image)
+        assert nms.nms_alive_cuda.launches == 1
+        assert roi_align.roi_crop_pool_cuda.launches == 0
+        assert 0 < len(objects) <= 100
+        for o in objects:
+            assert np.isfinite(o["bbox"]).all() and 0 <= o["label"] < 3

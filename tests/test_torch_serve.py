@@ -310,11 +310,20 @@ class TestServingProfile:
             apply_serving_profile(config, "warp9")
 
     def test_fast_reaches_the_model_build(self, small):
-        """The port has no int8 path: the fast profile's flags raise at the
-        model build instead of being dropped."""
+        """The fast profile's flags reach the model build: the int8 tail
+        with static scales, calibrated at load, serves."""
+        from luminoth_tpu_torch.models.base.quantized_tail import (
+            Int8ResNetTail,
+            needs_calibration,
+        )
+
         config = apply_serving_profile(get_config(small["path"]), "fast")
-        with pytest.raises(NotImplementedError, match="int8_tail"):
-            predicting.PredictorNetwork(config, device="cpu")
+        network = predicting.PredictorNetwork(config, device="cpu")
+        tail = network._model.base_network_tail.resnet_v1_50
+        assert isinstance(tail, Int8ResNetTail)
+        assert not needs_calibration(network._model)
+        image = np.asarray(Image.open(image_files(small["root"], 1)[0]))
+        assert isinstance(network.predict_image(image), list)
 
 
 # ------------------------------------------------------------- web server
