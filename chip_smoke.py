@@ -31,7 +31,17 @@ its int8 layers on the card against the CPU at a small size
 ``accurate`` forward (``[fast-serve]``, K1 and K2 held on its own
 tensors), SSD under ``fast`` at batches 32 and 128 (``[ssd-fast-serve]``)
 and a one-image ``predict --profile fast`` request for each model
-(``[fast-predict]``).
+(``[fast-predict]``). The checkpoint zoo: [train]'s checkpoint through
+``checkpoint create``/``export``/``build-index`` into a ``file://`` index
+in a fresh ``LUMI_HOME``, then ``Detector(checkpoint=alias)``, which must
+equal a ``PredictorNetwork`` on the same checkpoint bit for bit, ``predict
+--checkpoint`` and ``server web --checkpoint`` (``[zoo]``). The other
+backbones at full width, each first on the card against the CPU at a small
+size: ResNet-101 v2, ResNet-101 v1 with ``torchvision_compat`` and VGG-16,
+whose 512-channel map K2 takes (``[backbones]``). Then ``checkpoint
+convert-backbone`` of seeded torchvision-layout VGG-16 and ResNet-101
+weights and 3 ``train.run`` steps from each, K3 held and timed at 512
+channels (``[pretrained-train]``).
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, ...}``.
@@ -141,6 +151,26 @@ FAST_PARITY_DETECTIONS, FAST_PAIRED_SHARE = 10, 0.8
 PROB_ATOL = 1e-4 + 1e-5  # the predictor rounds probabilities to 4 places
 SSD_FAST_BOX_ATOL = 1e-3  # px, SSD `fast` detections card against CPU
 INT8_PARITY_ROIS = 24
+ZOO_ALIAS = "smoke-zoo"  # [zoo]: [train]'s checkpoint as a zoo bundle
+# [backbones]: (name, architecture, base_network keys), full width.
+BACKBONES = (
+    ("resnet_v2_101", "resnet_v2_101", None),
+    ("resnet_v1_101_tv", "resnet_v1_101", {"torchvision_compat": True}),
+    ("vgg_16", "vgg_16", None),
+)
+# [pretrained-train]: (name, architecture, base_network keys, a converted
+# tensor that does not train: (module under base_network, attribute, .npz
+# key, whether it is a conv kernel)), 3 steps each.
+PRETRAINED = (
+    ("vgg_16_tv", "vgg_16", {"fine_tune_from": "conv3"},
+     ("vgg_16.conv1.conv1_1", "weight",
+      "params/base_network/vgg_16/conv1/conv1_1/kernel", True)),
+    ("resnet_v1_101_tv", "resnet_v1_101", {"torchvision_compat": True},
+     ("resnet_v1_101.block3.unit_7.conv2_bn", "running_mean",
+      "batch_stats/base_network/resnet_v1_101/block3/unit_7/conv2_bn/"
+      "BatchNorm/mean", False)),
+)
+PRETRAINED_STEPS = 3
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(HERE, "build", "chip_smoke")
 
@@ -566,15 +596,18 @@ def check_k3(device):
     return worst, times
 
 
-def serve_config(architecture, classes, dtype, canvas, budgets=None):
-    """The config a user would write, as YAML under ``build/``."""
+def serve_config(architecture, classes, dtype, canvas, budgets=None,
+                 base_network=None):
+    """The config a user would write, as YAML under ``build/``;
+    ``base_network`` adds keys to its section (``torchvision_compat``)."""
     import yaml
 
     model = {
         "type": "fasterrcnn",
         "compute_dtype": dtype,
         "network": {"num_classes": classes},
-        "base_network": {"architecture": architecture},
+        "base_network": {"architecture": architecture,
+                         **(base_network or {})},
         # Random weights give no class 0.5: keep every class in the NMS.
         "rcnn": {"proposals": {"min_prob_threshold": 0.0}},
     }
@@ -587,16 +620,18 @@ def serve_config(architecture, classes, dtype, canvas, budgets=None):
         }},
     }
     os.makedirs(BUILD, exist_ok=True)
-    path = os.path.join(BUILD, f"{architecture}_{dtype}_{canvas[0]}.yml")
+    extra = "".join(f"_{k}" for k in sorted(base_network or {}))
+    path = os.path.join(BUILD,
+                        f"{architecture}{extra}_{dtype}_{canvas[0]}.yml")
     with open(path, "w") as f:
         yaml.safe_dump(config, f)
     return path
 
 
-def small_parity_model():
-    """[parity]'s small f32 config (R101, 80 classes, 160x224, small RPN
-    budgets), its random weights with rescaled classifiers, two images, and
-    ``forward(device)`` of the model on them."""
+def small_parity_model(architecture="resnet_v1_101", base_network=None):
+    """[parity]'s small f32 config (R101 by default, 80 classes, 160x224,
+    small RPN budgets), its random weights with rescaled classifiers, two
+    images, and ``forward(device)`` of the model on them."""
     import numpy as np
     import torch
     from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
@@ -607,8 +642,9 @@ def small_parity_model():
     )
 
     config = get_config(serve_config(
-        "resnet_v1_101", 80, "float32", SMALL_CANVAS,
+        architecture, 80, "float32", SMALL_CANVAS,
         budgets={"rpn": {"pre_nms_top_n": 400, "post_nms_top_n": 50}},
+        base_network=base_network,
     ))
     variables = init_variables(config, SEED)
     images = torch.from_numpy(
@@ -637,11 +673,12 @@ def small_parity_model():
     return config, variables, forward
 
 
-def check_small_parity(device):
+def check_small_parity(device, architecture="resnet_v1_101",
+                       base_network=None, name="parity"):
     """The served path (kernels) against the plain versions, f32, small."""
     import torch
 
-    _, _, forward = small_parity_model()
+    _, _, forward = small_parity_model(architecture, base_network)
     want = forward("cpu")["classification_prediction"]
     got = forward(device)["classification_prediction"]
     valid = want["valid"]
@@ -653,11 +690,12 @@ def check_small_parity(device):
                     .max())
     if not same or not box_err <= BOX_ATOL:
         raise AssertionError(
-            f"served path disagrees with the plain versions: valid/labels "
-            f"equal={same}, box max err {box_err} px"
+            f"[{name}] {architecture} {base_network or ''}: served path "
+            f"disagrees with the plain versions: valid/labels equal={same}, "
+            f"box max err {box_err} px"
         )
-    phase("parity", model="resnet_v1_101", dtype="float32",
-          images="2x160x224", detections=int(valid.sum()),
+    phase(name, model=architecture, **(base_network or {}),
+          dtype="float32", images="2x160x224", detections=int(valid.sum()),
           labels_equal=True, box_max_err_px=box_err)
 
 
@@ -1846,10 +1884,10 @@ def rescaled_ssd_variables(config, device):
     return variables
 
 
-def check_detections(name, results, classes, cap, floor):
+def check_detections(name, results, classes, cap, floor, labels=None):
     """Per image: at most ``cap`` detections sorted by probability, finite
-    boxes, labels in range, probabilities in [floor, 1]; returns the
-    count."""
+    boxes, labels in range (or among ``labels``, the class names),
+    probabilities in [floor, 1]; returns the count."""
     import numpy as np
 
     count = 0
@@ -1861,8 +1899,9 @@ def check_detections(name, results, classes, cap, floor):
                                  f"probability")
         for o in objects:
             box = np.asarray(o["bbox"], np.float64)
-            if not (box.shape == (4,) and np.isfinite(box).all()
-                    and 0 <= o["label"] < classes
+            known = (o["label"] in labels if labels is not None
+                     else 0 <= o["label"] < classes)
+            if not (box.shape == (4,) and np.isfinite(box).all() and known
                     and floor - 1e-4 <= o["prob"] <= 1.0):
                 raise AssertionError(f"[{name}] malformed detection {o}")
         count += len(objects)
@@ -2681,6 +2720,455 @@ def fast_predict_phase(device):
     return total
 
 
+@contextlib.contextmanager
+def zoo_home():
+    """A fresh ``LUMI_HOME`` under ``build/`` and no remote index for the
+    block, so that the machine's own home is not written."""
+    import shutil
+
+    keys = ("LUMI_HOME", "LUMI_REMOTE_INDEX_URL")
+    saved = {key: os.environ.get(key) for key in keys}
+    home = os.path.join(BUILD, "zoo_home")
+    shutil.rmtree(home, ignore_errors=True)
+    os.environ["LUMI_HOME"] = home
+    os.environ.pop("LUMI_REMOTE_INDEX_URL", None)
+    try:
+        yield home
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def invoke(command, args):
+    """A click command with ``args``, in process; raises unless it exits
+    with 0."""
+    from click.testing import CliRunner
+
+    result = CliRunner().invoke(command, [str(a) for a in args])
+    if result.exit_code != 0:
+        raise AssertionError(f"{command.name} {args[0]}: exit "
+                             f"{result.exit_code}: {result.output}"
+                             ) from result.exception
+    return result
+
+
+def zoo_cli(args):
+    """``python -m luminoth_tpu_torch checkpoint <args>``, in process."""
+    from luminoth_tpu_torch.tools.checkpoint import checkpoint
+
+    return invoke(checkpoint, args)
+
+
+def web_request(device, args, body):
+    """The ``server web`` command with ``args`` in process (its server
+    started without blocking), one multipart POST of the JPEG ``body``;
+    returns the answer's objects. The server is stopped after."""
+    import urllib.request
+
+    from luminoth_tpu_torch.tools.server import web
+
+    servers, run_server = [], web.run_server
+
+    def non_blocking(*a, **kw):
+        servers.append(run_server(*a, **{**kw, "block": False}))
+        return servers[-1]
+
+    web.run_server = non_blocking
+    try:
+        invoke(web.web, [*args, "--port", "0", "--batch-size", "1",
+                         "--device", str(device)])
+    finally:
+        web.run_server = run_server
+    httpd = servers[0]
+    try:
+        if not httpd.state.ready.wait(600) or httpd.state.network is None:
+            raise AssertionError(f"server web: model not loaded: "
+                                 f"{httpd.state.error}")
+        boundary = "smokeboundary"
+        data = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                f'name="image"; filename="q.jpg"\r\n'
+                f"Content-Type: image/jpeg\r\n\r\n").encode()
+        data += body + f"\r\n--{boundary}--\r\n".encode()
+        request = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/api/fasterrcnn/"
+            f"predict/", data=data, headers={
+                "Content-Type": f"multipart/form-data; boundary={boundary}"})
+        with urllib.request.urlopen(request, timeout=300) as response:
+            return json.load(response)["objects"]
+    finally:
+        web.stop_server(httpd)
+
+
+def zoo_phase(device, card):
+    """[zoo]: [train]'s checkpoint through the checkpoint zoo, in a fresh
+    ``LUMI_HOME``: ``checkpoint create``, ``export``, ``build-index`` into
+    a ``file://`` index and ``delete`` of the local copy; then
+    ``Detector(checkpoint=alias)`` refreshes the index, downloads the
+    bundle and serves two batches of 8 at 608x800, which must equal, bit
+    for bit, a ``PredictorNetwork`` on [train]'s checkpoint itself (cuDNN
+    deterministic for both); K1 and K2 held on a served forward's own
+    tensors; then ``predict --checkpoint`` and ``server web
+    --checkpoint`` answer one request each. Counts K1 and K2 over the
+    Detector's forwards and the two commands'."""
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from luminoth_tpu_torch import Detector
+    from luminoth_tpu_torch import predict as predictor
+    from luminoth_tpu_torch.tools import checkpoint as zoo
+    from luminoth_tpu_torch.tools.server.web import MIN_PROB_FOR_FRONTEND
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.predicting import PredictorNetwork
+
+    path = checkpoint_config("zoo")
+    export = os.path.join(BUILD, "zoo_export")
+    shutil.rmtree(export, ignore_errors=True)
+    os.makedirs(export)
+    rng = np.random.default_rng(SEED + 21)
+    batches = [[rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+                for _ in range(BATCH)] for _ in range(2)]
+    jpeg = io.BytesIO()
+    Image.fromarray(batches[0][0]).save(jpeg, "JPEG", quality=90)
+    image_path = os.path.join(BUILD, "zoo_query.jpg")
+    with open(image_path, "wb") as f:
+        f.write(jpeg.getvalue())
+    deterministic = torch.backends.cudnn.deterministic
+    with zoo_home():
+        t0 = time.perf_counter()
+        zoo_cli(["create", path, "--alias", ZOO_ALIAS])
+        (entry,) = zoo.read_checkpoint_db()["checkpoints"]
+        bundle = zoo.get_checkpoint_path(entry["id"])
+        weights = [n for n in os.listdir(bundle) if n.endswith(".msgpack")]
+        bundle_mb = os.path.getsize(os.path.join(bundle, weights[0])) / 1e6
+        zoo_cli(["export", ZOO_ALIAS, "--output", export])
+        zoo_cli(["build-index", export])
+        zoo_cli(["delete", ZOO_ALIAS])
+        publish_s = time.perf_counter() - t0
+        if zoo.read_checkpoint_db()["checkpoints"] or os.path.exists(bundle):
+            raise AssertionError("[zoo] delete left the bundle")
+        os.environ["LUMI_REMOTE_INDEX_URL"] = "file://" + os.path.join(
+            export, "index.json")
+        torch.backends.cudnn.deterministic = True
+        try:
+            t0 = time.perf_counter()
+            detector = Detector(checkpoint=ZOO_ALIAS, device=device,
+                                prob=0.0)
+            load_s = time.perf_counter() - t0
+            (entry,) = zoo.read_checkpoint_db()["checkpoints"]
+            labels = zoo.get_checkpoint_class_labels(ZOO_ALIAS)
+            if entry["status"] != "DOWNLOADED" or len(labels) != 80:
+                raise AssertionError(f"[zoo] entry {entry}, labels "
+                                     f"{labels and len(labels)}")
+            read = path_launches()
+            got = [detector.predict(batch) for batch in batches]
+            launches = read()
+            check_forwards("zoo", launches, len(batches))
+            reference = PredictorNetwork(get_config(path),
+                                         class_labels=labels, device=device)
+            want = [reference.predict_batch(batch, pad_to=BATCH)
+                    for batch in batches]
+            if got != want:
+                raise AssertionError(
+                    "[zoo] Detector(checkpoint=) differs from "
+                    "PredictorNetwork on the same checkpoint")
+            del reference
+            detections = check_detections(
+                "zoo", [objects for batch in got for objects in batch], 80,
+                300, 0.0, labels=labels)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        k1s, k2s = [], []
+        with capturing_k1(k1s), capturing_k2(k2s):
+            detector.predict(batches[1])
+        hold_k1(k1s, "zoo", timed=False)
+        k2_errors = []
+        hold_k2(k2s, "zoo", errors=k2_errors, timed=False)
+        del detector
+
+        read = path_launches()
+        out = os.path.join(BUILD, "zoo_predict.jsonl")
+        result = invoke(predictor.predict, [
+            image_path, "--checkpoint", ZOO_ALIAS, "--min-prob", "0",
+            "--device", str(device), "-f", out])
+        with open(out) as f:
+            predicted = json.loads(f.readline())["objects"]
+        served = web_request(device, ["--checkpoint", ZOO_ALIAS],
+                             jpeg.getvalue())
+        commands = read()
+        check_forwards("zoo-commands", commands, 2)
+        # The web command serves at its frontend floor (min_prob 0.01):
+        # an early checkpoint may have no detection above it.
+        for name, objects, floor in (("predict", predicted, 0.0),
+                                     ("web", served, MIN_PROB_FOR_FRONTEND)):
+            if (name == "predict" and not objects) or any(
+                    o["label"] not in labels or o["prob"] < floor
+                    for o in objects):
+                raise AssertionError(f"[zoo] {name} --checkpoint answered "
+                                     f"{objects[:2]} ({result.output})")
+    launches = {k: launches[k] + commands[k] for k in launches}
+    phase("zoo", model="resnet_v1_101", classes=80, dtype="bfloat16",
+          canvas=f"{CANVAS[0]}x{CANVAS[1]}", batch=BATCH,
+          bundle_mb=f"{bundle_mb:.1f}", publish_s=f"{publish_s:.1f}",
+          download_and_load_s=f"{load_s:.1f}", forwards=len(batches) + 2,
+          k1_launches=launches["k1"], k2_launches=launches["k2"],
+          detections=detections, equal_to_predictor=True,
+          k1_held=len(k1s), k2_max_abs_err=k2_errors[0],
+          predict_objects=len(predicted), web_objects=len(served),
+          card=f"'{card}'")
+    return launches
+
+
+def backbones_phase(device, card):
+    """[backbones]: Faster R-CNN on each other backbone at full width (80
+    classes, bf16, b8 608x800, [serve]'s budgets, random weights): first
+    the card against the CPU at a small size (f32, TF32 off, the same
+    detections), then one counted ``predict_batch`` of 8 480x640 images,
+    K1 and K2 held on another forward's own tensors (K2 at VGG-16's 512
+    channels also timed beside its plain version, its bound and the
+    library form), and the device time of a forward on an uploaded batch
+    with its peak memory."""
+    import numpy as np
+    import torch
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.predicting import PredictorNetwork
+    from luminoth_tpu_torch.utils.weights import init_variables
+
+    rng = np.random.default_rng(SEED + 23)
+    batch = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+             for _ in range(BATCH)]
+    images = torch.from_numpy(np.stack([
+        rng.integers(0, 256, (CANVAS[0], CANVAS[1], 3), dtype=np.uint8)
+        for _ in range(BATCH)])).to(device)
+    im_shape = torch.tensor([CANVAS] * BATCH, dtype=torch.float32,
+                            device=device)
+    total = {"k1": 0, "k2": 0}
+    k2_shapes = []
+    for name, architecture, extra in BACKBONES:
+        check_small_parity(device, architecture, extra,
+                           name="backbones-parity")
+        config = get_config(serve_config(architecture, 80, "bfloat16",
+                                         CANVAS, base_network=extra))
+        t0 = time.perf_counter()
+        network = PredictorNetwork(config, variables=init_variables(
+            config, SEED), device=device)
+        setup_s = time.perf_counter() - t0
+        read = path_launches()
+        results = network.predict_batch(batch)
+        launches = read()
+        check_forwards(f"backbones {name}", launches, 1)
+        detections = check_detections(f"backbones {name}", results, 80, 300,
+                                      0.0)
+        k1s, k2s, survivors = [], [], []
+        with capturing_k1(k1s), capturing_k2(k2s):
+            network.predict_batch(batch)
+        hold_k1(k1s, f"backbones {name}", survivors=survivors, timed=False)
+        k2_errors = []
+        vgg = architecture == "vgg_16"
+        k2 = hold_k2(k2s, f"backbones {name}", errors=k2_errors, timed=vgg,
+                     library=vgg)
+        channels = k2s[0][0].shape[-1]
+        if vgg:
+            k2_shapes.append({"rois": k2s[0][1].shape[1], "channels": channels,
+                              "on": "vgg_16 forward",
+                              "max_abs_err": k2_errors[0], **k2})
+        del k1s, k2s
+        torch.cuda.reset_peak_memory_stats()
+        forward_ms = cuda_ms(lambda: network.forward(images, im_shape), 3,
+                             warmup=1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        total = {k: total[k] + launches[k] for k in total}
+        k2_numbers = {} if not vgg else {
+            "k2_ms": f"{k2['ms']:.4f}", "k2_plain_ms": f"{k2['plain_ms']:.4f}",
+            "k2_bound_ms": f"{k2['bound_ms']:.4f}",
+            "k2_library_ms": f"{k2['library_ms']:.4f}"}
+        phase("backbones", model=name, architecture=architecture,
+              **(extra or {}), classes=80, dtype="bfloat16",
+              canvas=f"{CANVAS[0]}x{CANVAS[1]}", batch=BATCH,
+              k1_launches=launches["k1"], k2_launches=launches["k2"],
+              detections=detections, k1_rpn_survivors=survivors[0],
+              k2_channels=channels, k2_max_abs_err=k2_errors[0],
+              **k2_numbers, setup_s=f"{setup_s:.1f}",
+              forward_ms=f"{forward_ms:.2f}",
+              images_per_s=f"{1000 * BATCH / forward_ms:.2f}",
+              peak_gb=f"{peak_gb:.1f}", card=f"'{card}'")
+        del network
+        torch.cuda.empty_cache()
+    return total, k2_shapes
+
+
+def torchvision_state(architecture, seed):
+    """A seeded state dict in torchvision's layout: ResNet-101's or
+    VGG-16's convs drawn normal with std 1/sqrt(fan in), batch norms near
+    the identity. Stands in for an ImageNet download (no network)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    state = {}
+
+    def conv(key, cout, cin, k, bias=False):
+        state[f"{key}.weight"] = torch.from_numpy(
+            rng.standard_normal((cout, cin, k, k), dtype=np.float32)
+            / np.float32(math.sqrt(cin * k * k)))
+        if bias:
+            state[f"{key}.bias"] = torch.zeros(cout)
+
+    def bn(key, c):
+        state[f"{key}.weight"] = torch.ones(c)
+        state[f"{key}.bias"] = torch.zeros(c)
+        state[f"{key}.running_mean"] = torch.from_numpy(
+            rng.normal(0, 0.1, c).astype(np.float32))
+        state[f"{key}.running_var"] = torch.from_numpy(
+            rng.uniform(0.8, 1.2, c).astype(np.float32))
+
+    if architecture == "vgg_16":
+        cin, index = 3, 0
+        for reps, cout in ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512)):
+            for _ in range(reps):
+                conv(f"features.{index}", cout, cin, 3, bias=True)
+                cin, index = cout, index + 2
+            index += 1  # the max-pool
+        return state
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    depth_in = 64
+    for layer, units in enumerate((3, 4, 23, 3), start=1):
+        base = 64 * 2 ** (layer - 1)
+        for unit in range(units):
+            key = f"layer{layer}.{unit}"
+            conv(f"{key}.conv1", base, depth_in, 1)
+            conv(f"{key}.conv2", base, base, 3)
+            conv(f"{key}.conv3", base * 4, base, 1)
+            bn(f"{key}.bn1", base)
+            bn(f"{key}.bn2", base)
+            bn(f"{key}.bn3", base * 4)
+            if unit == 0:
+                conv(f"{key}.downsample.0", base * 4, depth_in, 1)
+                bn(f"{key}.downsample.1", base * 4)
+            depth_in = base * 4
+    return state
+
+
+def pretrained_train_phase(device, card):
+    """[pretrained-train]: ``checkpoint convert-backbone`` of a seeded
+    torchvision-layout VGG-16, then ``train.run`` of Faster R-CNN on
+    ``vgg_16`` from it for 3 steps (80 classes, bf16, b8 608x800); the
+    same for a torchvision-layout ResNet-101 under ``torchvision_compat``.
+    The converted weights must be in the trained model where they do not
+    train; K1, K2 and K3 once per step; K2 and K3 held on a step's own
+    tensors, and at VGG-16's 512 channels timed beside their plain
+    versions and bounds."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.ops import nms, roi_align
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.synthetic import write_synthetic_records
+
+    folder = os.path.join(BUILD, "pretrained")
+    os.makedirs(folder, exist_ok=True)
+    data, _ = write_synthetic_records(os.path.join(BUILD, "data"),
+                                      TRAIN_IMAGES, 80, SEED + 6)
+    jobs = os.path.join(BUILD, "jobs")
+    total = {"k1": 0, "k2": 0, "k3": 0}
+    shapes = {}
+    for name, architecture, base_network, probe in PRETRAINED:
+        pth = os.path.join(folder, f"{name}.pth")
+        npz = os.path.join(folder, f"{name}.npz")
+        torch.save(torchvision_state(architecture, SEED + 31), pth)
+        t0 = time.perf_counter()
+        zoo_cli(["convert-backbone", pth, npz, "--architecture",
+                 architecture])
+        convert_s = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(jobs, name), ignore_errors=True)
+        config = get_config(train_config(
+            os.path.join(BUILD, f"{name}.yml"), 80, "bfloat16", CANVAS, {
+                "train": {"job_dir": jobs, "run_name": name},
+                "dataset": {"dir": data},
+                "model": {"base_network": {
+                    "architecture": architecture, "weights": npz,
+                    **base_network}}}))
+        k2s, k3s = [], []
+        nms.nms_alive_cuda.launches = 0
+        t0 = time.perf_counter()
+        with capturing_k2(k2s) as k2_capture, capturing_k3(k3s) as k3_capture:
+            state = trainer.run(config, max_steps=PRETRAINED_STEPS,
+                                device=device)
+        wall_s = time.perf_counter() - t0
+        launches = {"k1": nms.nms_alive_cuda.launches,
+                    "k2": k2_capture.launches, "k3": k3_capture.launches}
+        losses = [h["total_loss"] for h in state.history]
+        if state.step != PRETRAINED_STEPS or launches != {
+                k: PRETRAINED_STEPS for k in launches} or not all(
+                map(math.isfinite, losses)):
+            raise AssertionError(f"[pretrained-train] {name}: step "
+                                 f"{state.step}, launches {launches}, "
+                                 f"losses {losses}")
+        # A tensor that does not train (frozen by fine_tune_from, or a
+        # batch-norm statistic) still holds the converted value.
+        module, attr, key, transpose = probe
+        got = getattr(state.model.base_network.get_submodule(module), attr)
+        want = torch.from_numpy(np.load(npz)[key])
+        if transpose:
+            want = want.permute(3, 2, 0, 1)
+        if not torch.equal(got.detach().cpu(), want):
+            raise AssertionError(f"[pretrained-train] {name}: {key} is not "
+                                 f"the converted value")
+        k2_errors = []
+        k2 = hold_k2(k2s, "pretrained-train", errors=k2_errors,
+                     library=True)
+        fm, boxes, grad, s = k3s[0]
+        scale = unit_scale(grad)
+        k3 = hold_k3(fm, boxes, grad * scale, s)
+        k3_ms = cuda_ms(lambda: roi_align.roi_crop_pool_backward_cuda(
+            fm, boxes, grad, s), 10, warmup=2)
+        k3_plain_ms = cuda_ms(
+            lambda: roi_align.roi_crop_pool_backward_reference(
+                fm, boxes, grad, s), 2)
+        k3_bound_ms, k3_bound_by = k3_bound(fm, boxes, grad)
+        channels = fm.shape[-1]
+        on = f"{name} train step"
+        shapes[name] = (
+            {"rois": boxes.shape[1], "channels": channels, "on": on,
+             "max_abs_err": max(k2_errors), **k2},
+            {"rois": boxes.shape[1], "channels": channels, "on": on,
+             "max_abs_err": k3["max_abs_err"], "ms": k3_ms,
+             "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
+             "bound_by": k3_bound_by, "library_ms": None})
+        total = {k: total[k] + launches[k] for k in total}
+        steady = [h["device_ms"] for h in state.history[1:]]
+        phase("pretrained-train", model=name, architecture=architecture,
+              **base_network, classes=80, dtype="bfloat16",
+              canvas=f"{CANVAS[0]}x{CANVAS[1]}", batch=BATCH,
+              steps=state.step, convert_s=f"{convert_s:.1f}",
+              k1_launches=launches["k1"], k2_launches=launches["k2"],
+              k3_launches=launches["k3"], converted_value_kept=True,
+              losses="/".join(f"{v:.4f}" for v in losses),
+              steady_step_ms=f"{sum(steady) / len(steady):.2f}",
+              wall_s=f"{wall_s:.1f}", k2_channels=channels,
+              k2_max_abs_err=max(k2_errors), k2_ms=f"{k2['ms']:.4f}",
+              k2_plain_ms=f"{k2['plain_ms']:.4f}",
+              k2_bound_ms=f"{k2['bound_ms']:.4f}",
+              k2_library_ms=f"{k2['library_ms']:.4f}",
+              k3_max_abs_err=k3["max_abs_err"],
+              k3_identity_rel_err=k3["identity_rel_err"],
+              k3_cotangent_scale=scale, k3_ms=f"{k3_ms:.4f}",
+              k3_plain_ms=f"{k3_plain_ms:.4f}",
+              k3_bound_ms=f"{k3_bound_ms:.4f}", k3_bound_by=k3_bound_by,
+              card=f"'{card}'")
+        del state, k2s, k3s, fm, boxes, grad
+        torch.cuda.empty_cache()
+    return total, shapes
+
+
 def unit_scale(grad):
     """The power of two (exact in bf16) that brings the largest magnitude
     of the cotangents ``grad`` into [1, 2)."""
@@ -2753,6 +3241,11 @@ def main():
     paths["serve_latency"] = serve_latency(device, card)
     paths["web"] = web_phase(device, card)
     torch.cuda.empty_cache()
+    paths["zoo"] = zoo_phase(device, card)
+    torch.cuda.empty_cache()
+    paths["backbones"], k2_backbones = backbones_phase(device, card)
+    paths["pretrained_train"], pretrained = pretrained_train_phase(
+        device, card)
     paths["ssd_serve"], _ = ssd_serve(device, card)
     torch.cuda.empty_cache()
     paths["ssd_fast"], ssd_fast_k1 = ssd_fast_serve(device, card)
@@ -2765,6 +3258,8 @@ def main():
     check_int8_parity(device)
 
     rpn_ms, rpn_plain_ms, rpn_bound_ms, rpn_bound_by = k1_times[(8, 12000)]
+    k2_shapes = [*k2_backbones, *(k2 for k2, _ in pretrained.values())]
+    k3_shapes = [k3 for _, k3 in pretrained.values()]
     k3_ms, k3_plain_ms, k3_bound_ms, k3_bound_by = k3_times["bfloat16"]
     def by_path(kernel):
         # Only the paths whose run counted this kernel's launches.
@@ -2791,17 +3286,25 @@ def main():
          "replaces": "luminoth_tpu/ops/pallas/roi_align_kernel.py:351",
          "launches": sum(by_path("k2").values()),
          "launches_by_path": by_path("k2"),
-         "max_abs_err": max(k2_err, fast_k2["max_abs_err"]), **k2,
-         "shapes": [{"rois": K2_SHAPE[1], "on": "random boxes",
-                     "max_abs_err": k2_err, **k2}, fast_k2]},
+         "max_abs_err": max([k2_err, fast_k2["max_abs_err"]]
+                            + [x["max_abs_err"] for x in k2_shapes]), **k2,
+         "shapes": [{"rois": K2_SHAPE[1], "channels": K2_SHAPE[4],
+                     "on": "random boxes", "max_abs_err": k2_err, **k2},
+                    fast_k2, *k2_shapes]},
         {"name": "roi_crop_pool_backward", "route": "cuda",
          "source": "luminoth_tpu_torch/csrc/roi_align.cu",
          "replaces": "luminoth_tpu/ops/pallas/roi_align_kernel.py:189",
          "launches": sum(by_path("k3").values()),
          "launches_by_path": by_path("k3"),
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "max_abs_err": max([k3_err] + [x["max_abs_err"] for x in k3_shapes]),
+         "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound_ms, "bound_by": k3_bound_by,
-         "library_ms": None},
+         "library_ms": None,
+         "shapes": [{"rois": K3_SHAPE[1], "channels": K3_SHAPE[4],
+                     "on": "random boxes", "max_abs_err": k3_err,
+                     "ms": k3_ms, "plain_ms": k3_plain_ms,
+                     "bound_ms": k3_bound_ms, "bound_by": k3_bound_by},
+                    *k3_shapes]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

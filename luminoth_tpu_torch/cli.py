@@ -1,10 +1,10 @@
 """The port's ``lumi`` command group: ``python -m luminoth_tpu_torch <cmd>``.
 
-Commands: ``train``, ``eval``, ``predict`` and ``server`` (``server web``).
-Each takes ``--device`` (default: the current CUDA device; without one it
-raises, there is no CPU fallback). The JAX package's ``checkpoint`` and
-``dataset`` groups are not ported yet, and ``cloud`` (Cloud TPU jobs) is
-not ported. Command modules are imported only when their command runs, so
+Commands: ``train``, ``eval``, ``predict``, ``server`` (``server web``)
+and ``checkpoint`` (the zoo). The model commands take ``--device``
+(default: the current CUDA device; without one they raise, there is no
+CPU fallback). The JAX package's ``dataset`` group is not ported yet, and
+``cloud`` (Cloud TPU jobs) is not ported. Command modules are imported only when their command runs, so
 ``--help`` stays fast.
 """
 
@@ -20,6 +20,7 @@ _COMMANDS = {
     "eval": ("luminoth_tpu_torch.eval", "eval"),
     "predict": ("luminoth_tpu_torch.predict", "predict"),
     "server": ("luminoth_tpu_torch.tools.server", "server"),
+    "checkpoint": ("luminoth_tpu_torch.tools.checkpoint", "checkpoint"),
 }
 
 _HELP = {
@@ -27,6 +28,7 @@ _HELP = {
     "eval": "Evaluate checkpoints on a dataset split.",
     "predict": "Run a detector on images or video.",
     "server": "Serve a model over HTTP.",
+    "checkpoint": "Manage the checkpoint zoo.",
 }
 
 

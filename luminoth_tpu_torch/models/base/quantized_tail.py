@@ -52,6 +52,7 @@ from luminoth_tpu_torch.models.base.resnet import (
     BottleneckV1,
     ResNet,
     ResNetTail,
+    root_pool,
 )
 
 # XLA turns the JAX package's division by the constant 127 into a product
@@ -423,17 +424,20 @@ class Int8ResNetTrunk(Int8Points, ResNet):
     """Int8 inference twin of ``resnet.ResNet`` (v1) up to ``endpoint``.
 
     The root 7x7 conv stays float32 with batch norm folded (3 input
-    channels), then relu and the 3x3/2 VALID max-pool; every bottleneck
-    runs int8. The input is the float32 mean-subtracted batch; the output
-    is in ``dtype``, the model's.
+    channels), then relu and the 3x3/2 max-pool (VALID, or padded with
+    ``stride_first``); every bottleneck runs int8. The input is the
+    float32 mean-subtracted batch; the output is in ``dtype``, the
+    model's.
     """
 
     def __init__(self, depth=101, output_stride=None, endpoint="block3",
-                 version=1, static_scales=False, dtype=torch.float32):
+                 version=1, stride_first=False, static_scales=False,
+                 dtype=torch.float32):
         _check_version(version, "int8_trunk")
         super().__init__(depth, output_stride, endpoint,
                          unit=functools.partial(Int8BottleneckV1,
-                                                static_scales=static_scales))
+                                                static_scales=static_scales),
+                         stride_first=stride_first)
         self.dtype = dtype
         self._setup_int8((), False)  # the cache of the folded root conv
 
@@ -445,8 +449,8 @@ class Int8ResNetTrunk(Int8Points, ResNet):
         kernel, bias = self.cached_weights(
             "conv1", fold_bn, _bn_sources(self.conv1, self.conv1_bn))
         x = F.conv2d(F.pad(x.float(), self.conv1_pad), kernel, stride=2)
-        x = torch.relu_(x + bias.reshape(1, -1, 1, 1))
-        x = F.max_pool2d(x, 3, stride=2)
+        x = root_pool(torch.relu_(x + bias.reshape(1, -1, 1, 1)),
+                      self.stride_first)
         y = x.permute(0, 2, 3, 1).contiguous()
         for name in self.block_names:
             for unit in getattr(self, name).values():

@@ -1,9 +1,17 @@
-"""ResNet v1 backbone with slim's structure, in PyTorch.
+"""ResNet v1 and v2 backbones with slim's structure, in PyTorch.
 
-Counterpart of ``luminoth_tpu/models/base/resnet.py`` (v1 only): stride is
-applied on the **last** unit of each block, ``output_stride`` switches to
-atrous (dilated) convolution once the target stride is reached, strided
-convs pad explicitly ("conv2d_same") and the root max-pool is VALID.
+Counterpart of ``luminoth_tpu/models/base/resnet.py``: stride is applied
+on the **last** unit of each block, ``output_stride`` switches to atrous
+(dilated) convolution once the target stride is reached, strided convs pad
+explicitly ("conv2d_same") and the root max-pool is VALID.
+``stride_first`` takes torchvision's convention instead (the stride on
+the first unit, one block later, and a padded root max-pool), so that
+converted torchvision weights compute the features they were trained for.
+
+v2 is slim's pre-activation ResNet: each unit starts with batch norm and
+relu (``preact``), its projection shortcut and ``conv3`` carry biases and
+no batch norm, and the root conv has a bias and no batch norm. The
+detection trunk stops at ``block3``, so no ``postnorm`` is built.
 
 Modules are NCHW and run on ``torch.channels_last`` tensors, so the NHWC
 views at the public functions cost no copy. Parameters stay float32 and
@@ -110,21 +118,70 @@ class BottleneckV1(nn.Module):
         return torch.relu(shortcut + residual)
 
 
-def _plan_units(block_defs, output_stride):
+class BottleneckV2(nn.Module):
+    """ResNet v2 pre-activation bottleneck: batch norm and relu first, then
+    1x1 / 3x3(stride, rate) / biased 1x1; no activation after the add."""
+
+    def __init__(self, depth_in, depth, depth_bottleneck, stride, rate=1):
+        super().__init__()
+        self.stride = stride
+        self.project = depth_in != depth
+        self.preact = BatchNorm(depth_in)
+        if self.project:
+            # slim builds the v2 shortcut and conv3 without a normalizer,
+            # so they keep their biases.
+            self.shortcut = Conv2d(depth_in, depth, 1, stride=stride,
+                                   bias=True)
+        self.conv1 = Conv2d(depth_in, depth_bottleneck, 1, bias=False)
+        self.conv1_bn = BatchNorm(depth_bottleneck)
+        self.conv2, self.conv2_pad = conv2d_same(
+            depth_bottleneck, depth_bottleneck, 3, stride, rate
+        )
+        self.conv2_bn = BatchNorm(depth_bottleneck)
+        self.conv3 = Conv2d(depth_bottleneck, depth, 1, bias=True)
+
+    def forward(self, x):
+        preact = torch.relu(self.preact(x))
+        if self.project:
+            shortcut = self.shortcut(preact)
+        else:
+            shortcut = x[:, :, ::self.stride, ::self.stride]
+
+        residual = torch.relu(self.conv1_bn(self.conv1(preact)))
+        if self.conv2_pad is not None:
+            residual = F.pad(residual, self.conv2_pad)
+        residual = torch.relu(self.conv2_bn(self.conv2(residual)))
+        return shortcut + self.conv3(residual)
+
+
+UNITS = {1: BottleneckV1, 2: BottleneckV2}
+
+
+def _plan_units(block_defs, output_stride, stride_first=False):
     """Expand block defs into per-unit (base_depth, stride, rate) schedules.
 
     slim's ``stack_blocks_dense`` atrous bookkeeping: once the accumulated
     stride reaches ``output_stride``, further strides become dilation
     rates. The root conv+pool contribute stride 4.
+
+    ``stride_first`` is torchvision's convention: the stride is on the
+    FIRST unit of a block, at stage entry, so slim's per-block strides
+    shift one block later, (2, 2, 2, 1) → (1, 2, 2, 2). The overall stride
+    is the same.
     """
     plan = []
     current_stride = 4
     rate = 1
+    if stride_first:
+        shifted = (1,) + tuple(s for _, _, s in block_defs[:-1])
+        block_defs = tuple((bd, nu, st)
+                           for (bd, nu, _), st in zip(block_defs, shifted))
     for b, (base_depth, num_units, block_stride) in enumerate(block_defs,
                                                               start=1):
         units = []
+        stride_unit = 0 if stride_first else num_units - 1
         for u in range(num_units):
-            unit_stride = block_stride if u == num_units - 1 else 1
+            unit_stride = block_stride if u == stride_unit else 1
             if output_stride is not None and current_stride == output_stride:
                 units.append((base_depth, 1, rate))
                 rate *= unit_stride
@@ -150,17 +207,26 @@ def _make_block(depth_in, units, unit=BottleneckV1):
 
 
 class ResNet(nn.Module):
-    """ResNet v1 trunk up to ``endpoint`` (``"block1"`` .. ``"block4"``).
+    """ResNet v1 or v2 trunk up to ``endpoint`` (``"block1"`` ..
+    ``"block4"``).
 
     Takes and returns NCHW tensors (channels_last on the serving path).
+    ``unit`` overrides the bottleneck class of ``version``.
     """
 
     def __init__(self, depth=101, output_stride=None, endpoint="block3",
-                 unit=BottleneckV1):
+                 unit=None, version=1, stride_first=False):
         super().__init__()
-        self.conv1, self.conv1_pad = conv2d_same(3, 64, 7, 2, 1)
-        self.conv1_bn = BatchNorm(64)
-        plan = _plan_units(RESNET_BLOCK_DEFS[depth], output_stride)
+        self.version = version
+        self.stride_first = stride_first
+        unit = unit or UNITS[version]
+        # v2's root conv has no normalizer in slim, so it carries a bias.
+        self.conv1, self.conv1_pad = conv2d_same(3, 64, 7, 2, 1,
+                                                 use_bias=version == 2)
+        if version == 1:
+            self.conv1_bn = BatchNorm(64)
+        plan = _plan_units(RESNET_BLOCK_DEFS[depth], output_stride,
+                           stride_first)
         names = [name for name, _ in plan]
         if endpoint not in names:
             raise ValueError(
@@ -174,21 +240,29 @@ class ResNet(nn.Module):
         self.out_channels = depth_in
 
     def forward(self, x):
-        x = F.pad(x, self.conv1_pad)
-        x = torch.relu(self.conv1_bn(self.conv1(x)))
-        # slim's max_pool2d(3, stride=2) is VALID: no padding.
-        x = F.max_pool2d(x, 3, stride=2)
+        x = self.conv1(F.pad(x, self.conv1_pad))
+        if self.version == 1:
+            x = torch.relu(self.conv1_bn(x))
+        x = root_pool(x, self.stride_first)
         for name in self.block_names:
             for unit in getattr(self, name).values():
                 x = unit(x)
         return x
 
 
-class ResNetTail(nn.Module):
-    """``block4`` run over pooled ROI crops: three stride-1 bottlenecks."""
+def root_pool(x, stride_first=False):
+    """The root 3x3/2 max-pool: slim's is VALID (no padding); torchvision's
+    (``stride_first``) pads 1 with -inf."""
+    return F.max_pool2d(x, 3, stride=2, padding=1 if stride_first else 0)
 
-    def __init__(self, depth=101, depth_in=1024, unit=BottleneckV1):
+
+class ResNetTail(nn.Module):
+    """``block4`` run over pooled ROI crops: three stride-1 bottlenecks
+    (v2: pre-activation units, and no ``postnorm``)."""
+
+    def __init__(self, depth=101, depth_in=1024, unit=None, version=1):
         super().__init__()
+        unit = unit or UNITS[version]
         base_depth, num_units, _ = RESNET_BLOCK_DEFS[depth][-1]
         self.block4, self.out_channels = _make_block(
             depth_in, [(base_depth, 1, 1)] * num_units, unit

@@ -1,11 +1,16 @@
-"""Truncated VGG-16 backbone in PyTorch (SSD's feature source).
+"""VGG-16 backbone in PyTorch, full and truncated.
 
-Counterpart of ``luminoth_tpu/models/base/vgg.py`` with ``truncated=True``:
-conv1_1 .. conv5_3, each a 3x3 TF-``SAME`` conv and a relu, with a 2x2
-stride-2 ``VALID`` max-pool after stages 1-4. At 300x300 the pools give
-150, 75, 37 and 18: conv4_3 is 37x37 and conv5_3 18x18 (not the canonical
-38/19). The full trunk with fc6-fc8 (the JAX package's ``vgg_16``
-architecture for Faster R-CNN) is not ported.
+Counterpart of ``luminoth_tpu/models/base/vgg.py``: conv1_1 .. conv5_3,
+each a 3x3 ``SAME`` conv and a relu, with a 2x2 stride-2 ``VALID`` max-pool
+after stages 1-4. At stride 1 a 3x3 ``SAME`` conv pads 1 on every side in
+both TF's and flax's convention, so SSD's truncated trunk and Faster
+R-CNN's ``vgg_16`` share the convs. At 300x300 the pools give 150, 75, 37
+and 18: conv4_3 is 37x37 and conv5_3 18x18 (not the canonical 38/19).
+
+``endpoint`` stops at a named conv (Faster R-CNN's ``conv5/conv5_3``, at
+stride 16). The full trunk (``truncated=False`` and no endpoint) goes on
+with pool5, ``fc6`` (7x7 ``VALID``), ``fc7`` (1x1) and, with
+``num_classes``, ``fc8``.
 
 Modules are NCHW and run on ``torch.channels_last`` tensors. Parameters
 stay float32 and are cast to the input's dtype, as in ``resnet.py``.
@@ -66,34 +71,58 @@ class TFConv2d(Conv2d):
 
 
 class VGG16(nn.Module):
-    """VGG-16 conv trunk up to conv5_3, with per-layer endpoints."""
+    """VGG-16 trunk with per-layer endpoints: up to conv5_3 (``truncated``)
+    or ``endpoint``, else through fc7 (and fc8 with ``num_classes``)."""
 
-    def __init__(self, truncated=True):
+    def __init__(self, truncated=True, endpoint=None, num_classes=None):
         super().__init__()
-        if not truncated:
-            raise NotImplementedError(
-                "the full VGG-16 (fc6-fc8) is not ported to PyTorch yet; "
-                "truncated_vgg_16 is")
+        convs = [(stage, f"{stage}_{i}", features)
+                 for reps, features, stage in _STAGES
+                 for i in range(1, reps + 1)]
+        names = [f"{stage}/{name}" for stage, name, _ in convs]
+        if endpoint is not None:
+            if endpoint not in names:
+                # A typo'd endpoint would silently run the whole trunk at
+                # the wrong stride.
+                raise ValueError(f"Unknown endpoint {endpoint!r}; expected "
+                                 f"one of {sorted(names)}")
+            convs = convs[:names.index(endpoint) + 1]
+        self.endpoint = endpoint
+        self.full = not truncated and endpoint is None
         in_channels = 3
-        for reps, features, stage in _STAGES:
-            layers = nn.ModuleDict()
-            for i in range(1, reps + 1):
-                layers[f"{stage}_{i}"] = TFConv2d(in_channels, features, 3)
-                in_channels = features
-            self.add_module(stage, layers)
+        for stage, name, features in convs:
+            if not hasattr(self, stage):
+                self.add_module(stage, nn.ModuleDict())
+            getattr(self, stage)[name] = TFConv2d(in_channels, features, 3)
+            in_channels = features
+        if self.full:
+            self.fc6 = TFConv2d(in_channels, 4096, 7, padding="VALID")
+            self.fc7 = TFConv2d(4096, 4096, 1)
+            in_channels = 4096
+            if num_classes:
+                self.fc8 = TFConv2d(4096, num_classes, 1)
+                in_channels = num_classes
         self.out_channels = in_channels
 
     def forward(self, x):
-        """NCHW ``x`` in the compute dtype → ``(conv5_3, endpoints)``;
+        """NCHW ``x`` in the compute dtype → ``(output, endpoints)``;
         endpoints are named as in the JAX package (``conv4/conv4_3``,
-        ``pool1``, ..., ``output``)."""
+        ``pool1``, ..., ``fc7``, ``output``)."""
         endpoints = {}
-        for _, _, stage in _STAGES:
+        for _, _, stage in _STAGES:  # the endpoint returns in its stage
             for name, conv in getattr(self, stage).items():
                 x = torch.relu(conv(x))
                 endpoints[f"{stage}/{name}"] = x
+            if f"{stage}/{name}" == self.endpoint:
+                return x, endpoints
             if stage != "conv5":
                 x = F.max_pool2d(x, 2, stride=2)  # VALID: floor
                 endpoints[f"pool{stage[-1]}"] = x
+        if self.full:
+            x = F.max_pool2d(x, 2, stride=2)
+            x = endpoints["fc6"] = torch.relu(self.fc6(x))
+            x = endpoints["fc7"] = torch.relu(self.fc7(x))
+            if hasattr(self, "fc8"):
+                x = self.fc8(x)
         endpoints["output"] = x
         return x, endpoints

@@ -56,7 +56,8 @@ def _gather_rows(values, indices):
 
 
 class FasterRCNN(nn.Module):
-    """Two-stage detector with RPN + RCNN over a truncated ResNet v1."""
+    """Two-stage detector with RPN + RCNN over a truncated ResNet or
+    VGG-16."""
 
     def __init__(self, config, dtype=torch.float32):
         super().__init__()
@@ -86,10 +87,13 @@ class FasterRCNN(nn.Module):
                 model_cfg.base_network, self.base_network.out_channels,
                 dtype=dtype,
             )
-            self.rcnn = RCNNHead(
-                self.base_network_tail.out_channels, self.num_classes,
-                model_cfg.rcnn, dtype=dtype,
-            )
+            in_features = self.base_network_tail.out_channels
+            if not model_cfg.rcnn.get("use_mean", True):
+                # The flattened (S, S, C) tail output of every ROI.
+                roi = model_cfg.rcnn.roi
+                in_features *= int(roi.pooled_width) * int(roi.pooled_height)
+            self.rcnn = RCNNHead(in_features, self.num_classes,
+                                 model_cfg.rcnn, dtype=dtype)
 
     def _priorities(self, stage, shape, generator, priorities, device):
         """The (fg, bg) subsampling priorities of ``stage`` ("rpn"/"rcnn")."""

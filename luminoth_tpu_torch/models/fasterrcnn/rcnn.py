@@ -1,9 +1,11 @@
 """RCNN head: dense stack + classifier/regressor over pooled ROI features.
 
-Counterpart of the JAX package's ``models/fasterrcnn/rcnn.py``: optional
-mean-pooling over the crop, then ``layer_sizes`` dense layers with the
-configured activation (relu6), then the class scores (C+1) and per-class
-box deltas (4·C), both returned in float32. In training, dropout with
+Counterpart of the JAX package's ``models/fasterrcnn/rcnn.py``: the crop
+mean-pooled (``use_mean``, the default) or flattened in (h, w, c) order,
+the row order of the flax ``Dense`` kernel, then ``layer_sizes`` dense
+layers with the configured activation (relu6), then the class scores
+(C+1) and per-class box deltas (4·C), both returned in float32. In
+training, dropout with
 ``dropout_keep_prob < 1`` runs before the first dense layer and after each
 hidden one, drawn from an explicit ``torch.Generator`` (flax's
 ``nn.Dropout``: keep with probability p, scale the kept by 1/p).
@@ -28,6 +30,8 @@ class RCNNHead(nn.Module):
 
     def __init__(self, in_features, num_classes, config,
                  dtype=torch.float32):
+        """``in_features``: the channels of the tail's output with
+        ``use_mean``, else its h·w·c."""
         super().__init__()
         self.dtype = dtype
         self.use_mean = bool(config.get("use_mean", True))
@@ -35,10 +39,6 @@ class RCNNHead(nn.Module):
             config.get("activation_function", "relu6")
         )
         self.keep_prob = float(config.get("dropout_keep_prob", 1.0))
-        if not self.use_mean:
-            raise NotImplementedError(
-                "rcnn.use_mean=False is not ported to PyTorch yet"
-            )
         self.layer_names = []
         for i, layer_size in enumerate(config.get("layer_sizes") or []):
             self.add_module(f"fc_{i}", Linear(in_features, layer_size))
@@ -59,8 +59,11 @@ class RCNNHead(nn.Module):
 
         ``generator`` draws the dropout masks in training.
         """
-        net = self._dropout(roi_features.to(self.dtype).mean(dim=(1, 2)),
-                            generator)
+        net = roi_features.to(self.dtype)
+        # NHWC: reshape flattens in (h, w, c) order, whatever the strides.
+        net = (net.mean(dim=(1, 2)) if self.use_mean
+               else net.reshape(net.shape[0], -1))
+        net = self._dropout(net, generator)
         for name in self.layer_names:
             net = self._dropout(self.activation(getattr(self, name)(net)),
                                 generator)

@@ -1,13 +1,15 @@
 """Region Proposal Network head (counterpart of the JAX package's
 ``models/fasterrcnn/rpn.py``).
 
-A 3x3 conv (512 channels) with relu6 over the feature map, then sibling
+A 3x3 conv (512 channels) with relu6 over the feature map (flax ``SAME``
+padding: an even kernel pads one more after than before), then sibling
 1x1 convs giving 2·A objectness logits and 4·A box deltas per cell.
 (B, H, W, C) in, (B, H·W·A, {2, 4}) out, flattened in (row, col, anchor)
 order — the anchor grid's order.
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from luminoth_tpu_torch.models.base.resnet import Conv2d
@@ -23,17 +25,22 @@ class RPN(nn.Module):
             config.get("activation_function", "relu6")
         )
         kernel = tuple(config.get("kernel_shape", [3, 3]))
-        if any(k % 2 == 0 for k in kernel):
-            raise NotImplementedError("even RPN kernels are not ported")
+        # flax SAME at stride 1: k - 1 in all, (k - 1) // 2 before.
+        (top, bottom), (left, right) = (((k - 1) // 2, k // 2)
+                                        for k in kernel)
+        self.pad = None
+        if (top, left) != (bottom, right):
+            self.pad, top, left = (left, right, top, bottom), 0, 0
         channels = config.get("num_channels", 512)
-        self.conv = Conv2d(in_channels, channels, kernel,
-                           padding=(kernel[0] // 2, kernel[1] // 2))
+        self.conv = Conv2d(in_channels, channels, kernel, padding=(top, left))
         self.cls_conv = Conv2d(channels, num_anchors * 2, 1)
         self.bbox_conv = Conv2d(channels, num_anchors * 4, 1)
 
     def forward(self, feature_map):
         """(B, H, W, C) NHWC map -> dict of (B, H·W·A, ·) float32 outputs."""
         x = feature_map.permute(0, 3, 1, 2)  # channels_last NCHW view
+        if self.pad is not None:
+            x = F.pad(x, self.pad)
         rpn_feature = self.activation(self.conv(x))
         batch = feature_map.shape[0]
         # NCHW -> NHWC before flattening: the channel index is anchor-major

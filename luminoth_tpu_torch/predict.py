@@ -4,13 +4,14 @@ drawn media.
 Counterpart of the JAX package's ``predict.py``, with the same JSON-lines
 output (``{"file": ..., "objects": [...]}`` per file) on one CUDA device
 (or ``--device cpu``). The weights are the newest training checkpoint
-under the config's ``train.job_dir``.
+under the config's ``train.job_dir``, or a checkpoint of the zoo
+(``--checkpoint`` with an id or alias; without ``--config`` either, the
+``accurate`` checkpoint), with its class labels.
 
     python -m luminoth_tpu_torch predict images/ -c config.yml
+    python -m luminoth_tpu_torch predict images/ --checkpoint accurate
 
-The checkpoint zoo is not ported yet: ``--checkpoint``, and the default
-``accurate`` checkpoint taken without ``--config``, raise
-``NotImplementedError``. Video IO uses cv2.
+Video IO uses cv2.
 """
 
 import json
@@ -28,10 +29,7 @@ from luminoth_tpu_torch.utils.config import (
     override_config_params,
     proposals_config,
 )
-from luminoth_tpu_torch.utils.predicting import (
-    ZOO_NOT_PORTED,
-    PredictorNetwork,
-)
+from luminoth_tpu_torch.utils.predicting import PredictorNetwork
 from luminoth_tpu_torch.utils.serving import apply_serving_profile
 from luminoth_tpu_torch.vis import vis_objects
 
@@ -196,7 +194,7 @@ def predict_video(network, path, only_classes=None, ignore_classes=None,
 @click.option(
     "config_files", "--config", "-c", multiple=True,
     help="Config to use.")
-@click.option("--checkpoint", help="Checkpoint to use (not ported).")
+@click.option("--checkpoint", help="Checkpoint to use.")
 @click.option(
     "override_params", "--override", "-o", multiple=True,
     help="Override model config params.")
@@ -248,9 +246,17 @@ def predict(path_or_dir, config_files, checkpoint, override_params,
             ", ".join(IMAGE_FORMATS + VIDEO_FORMATS)))
         return
 
-    if checkpoint or not config_files:
-        raise NotImplementedError(ZOO_NOT_PORTED)
-    config = get_config(list(config_files))
+    # Resolve config: explicit files or a zoo checkpoint.
+    if config_files:
+        config = get_config(list(config_files))
+    else:
+        from luminoth_tpu_torch.tools.checkpoint import get_checkpoint_config
+
+        if not checkpoint:
+            click.echo("Neither checkpoint nor config specified, assuming "
+                       "`accurate`.")
+            checkpoint = "accurate"  # also resolves class labels below
+        config = get_checkpoint_config(checkpoint)
     if override_params:
         config = override_config_params(config, override_params)
     config = apply_serving_profile(config, profile)
@@ -260,7 +266,15 @@ def predict(path_or_dir, config_files, checkpoint, override_params,
     proposals.total_max_detections = max_detections
     proposals.min_prob_threshold = min_prob
 
-    network = PredictorNetwork(config, device=device)
+    class_labels = None
+    if checkpoint:
+        from luminoth_tpu_torch.tools.checkpoint import (
+            get_checkpoint_class_labels,
+        )
+
+        class_labels = get_checkpoint_class_labels(checkpoint)
+    network = PredictorNetwork(config, class_labels=class_labels,
+                               device=device)
 
     if output_path == "-":
         output = sys.stdout

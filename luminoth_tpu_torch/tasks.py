@@ -4,17 +4,17 @@ Counterpart of the JAX package's ``tasks.py``, with the same ``predict``
 output format: a list of ``{"bbox": [x1, y1, x2, y2], "label": ...,
 "prob": ...}``. A ``Detector`` is built from a config, with flax-layout
 ``variables`` or the newest training checkpoint under the config's
-``train.job_dir``. Checkpoint-zoo loading (``checkpoint=``) is not ported
-yet.
+``train.job_dir``, or from a checkpoint of the zoo (``checkpoint=``, an
+id or alias; without a config, ``accurate``), which it downloads first
+when the entry is remote (``tools/checkpoint``).
 """
 
 import numpy as np
 
 from luminoth_tpu_torch.utils.config import get_config
-from luminoth_tpu_torch.utils.predicting import (
-    ZOO_NOT_PORTED,
-    PredictorNetwork,
-)
+from luminoth_tpu_torch.utils.predicting import PredictorNetwork
+
+DEFAULT_CHECKPOINT = "accurate"
 
 
 class Detector:
@@ -24,8 +24,10 @@ class Detector:
                  variables=None, device=None):
         """
         Args:
-            checkpoint: zoo checkpoint id or alias (not ported yet: raises).
-            config: path (or list of paths) to YAML config(s).
+            checkpoint: zoo checkpoint id or alias (defaults to
+                ``accurate`` when no config is given).
+            config: path (or list of paths) to YAML config(s), mutually
+                exclusive with ``checkpoint``.
             prob: default probability threshold for predictions.
             classes: iterable of class labels to keep by default.
             variables: flax-layout weights (see ``utils/weights.py``);
@@ -37,13 +39,24 @@ class Detector:
             raise ValueError(
                 "Only one of `checkpoint` or `config` must be specified."
             )
-        if config is None:
-            raise NotImplementedError(ZOO_NOT_PORTED)
-        self._config = get_config(config)
+        class_labels = None
+        if config is not None:
+            loaded = get_config(config)
+        else:
+            from luminoth_tpu_torch.tools.checkpoint import (
+                get_checkpoint_class_labels,
+                get_checkpoint_config,
+            )
+
+            checkpoint = checkpoint or DEFAULT_CHECKPOINT
+            loaded = get_checkpoint_config(checkpoint)
+            class_labels = get_checkpoint_class_labels(checkpoint)
+        self._config = loaded
         self.prob = prob
         self.classes = set(classes) if classes else None
         self._network = PredictorNetwork(
-            self._config, variables=variables, device=device
+            loaded, variables=variables, class_labels=class_labels,
+            device=device,
         )
 
     def predict(self, images, prob=None, classes=None):

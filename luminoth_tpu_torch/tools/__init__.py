@@ -1,1 +1,1 @@
-"""Command-line tools of the port (the ``server`` group)."""
+"""Command-line tools of the port (the ``server`` and ``checkpoint`` groups)."""

@@ -12,7 +12,8 @@ forwards by a :class:`~luminoth_tpu_torch.utils.serving.MicroBatcher`.
     python -m luminoth_tpu_torch server web -c config.yml --port 5000
 
 The weights are the newest training checkpoint under the config's
-``train.job_dir``; ``--checkpoint`` (the zoo) is not ported yet.
+``train.job_dir``, or a checkpoint of the zoo (``--checkpoint``; without
+``--config`` either, ``accurate``), served with its class labels.
 """
 
 import io
@@ -241,7 +242,7 @@ def stop_server(httpd):
 @click.command(help="Start basic web application.")
 @click.option(
     "config_files", "--config", "-c", multiple=True, help="Config to use.")
-@click.option("--checkpoint", help="Checkpoint to use (not ported).")
+@click.option("--checkpoint", help="Checkpoint to use.")
 @click.option(
     "override_params", "--override", "-o", multiple=True,
     help="Override model config params.")
@@ -274,16 +275,27 @@ def web(config_files, checkpoint, override_params, host, port, batch_size,
     )
     from luminoth_tpu_torch.utils.serving import apply_serving_profile
 
-    from luminoth_tpu_torch.utils.predicting import ZOO_NOT_PORTED
+    if config_files:
+        config = get_config(list(config_files))
+        class_labels = None
+    else:
+        from luminoth_tpu_torch.tools.checkpoint import (
+            get_checkpoint_class_labels,
+            get_checkpoint_config,
+        )
 
-    if checkpoint or not config_files:
-        raise NotImplementedError(ZOO_NOT_PORTED)
-    config = get_config(list(config_files))
+        name = checkpoint or "accurate"
+        if not checkpoint:
+            click.echo("Neither checkpoint nor config specified, assuming "
+                       "`accurate`.")
+        config = get_checkpoint_config(name)
+        class_labels = get_checkpoint_class_labels(name)
     if override_params:
         config = override_config_params(config, override_params)
     config = apply_serving_profile(config, profile)
     # A low floor, so the page's slider can filter on the client.
     proposals_config(config).min_prob_threshold = MIN_PROB_FOR_FRONTEND
 
-    run_server(config, host=host, port=port, batch_size=batch_size,
-               batch_wait_ms=batch_wait_ms, device=device)
+    run_server(config, class_labels=class_labels, host=host, port=port,
+               batch_size=batch_size, batch_wait_ms=batch_wait_ms,
+               device=device)

@@ -168,15 +168,31 @@ def prefetch_to_device(batch_iter, device, depth=2):
 def load_pretrained_backbone(variables, config):
     """Merge ``base_network.weights`` (flat flax ``.npz``) into flat
     ``variables``: paths present with the same shape are replaced, others
-    skipped, as the JAX package's ``merge_flat_params`` does."""
+    skipped, as the JAX package's ``merge_flat_params`` does.
+
+    A file stamped with a stride layout (``__meta__/layout``) must match
+    the config: torchvision-layout ResNet weights need
+    ``torchvision_compat: True`` and slim-layout ones must not have it;
+    a mismatch raises ``ValueError``, as in the JAX package.
+    """
     weights_file = config.model.base_network.get("weights")
     if not weights_file:
         return variables
     flat = flatten_variables(weights_file)
-    if str(flat.pop("__meta__/layout", "")) == "torchvision":
-        raise NotImplementedError(
-            f"{weights_file} holds torchvision-layout ResNet weights; "
-            "torchvision_compat is not ported to PyTorch yet"
+    layout = str(flat.pop("__meta__/layout", ""))
+    compat = config.model.base_network.get("torchvision_compat")
+    if layout == "torchvision" and not compat:
+        raise ValueError(
+            f"{weights_file} holds torchvision-layout ResNet weights "
+            "(stride on the first unit of each stage); set "
+            "model.base_network.torchvision_compat: True so the network "
+            "computes the features these weights were trained for."
+        )
+    if layout == "slim" and compat:
+        raise ValueError(
+            f"{weights_file} holds slim-layout ResNet weights (stride on "
+            "the last unit of each block); remove "
+            "model.base_network.torchvision_compat from the config."
         )
     if not any(k.startswith(("params/", "batch_stats/")) for k in flat):
         flat = {f"params/{k}": v for k, v in flat.items()}  # un-prefixed

@@ -9,7 +9,8 @@ sorted by probability, boxes in the original image's coordinates.
 
 Weights come from ``variables`` or, without them, from the newest
 training checkpoint under ``train.job_dir`` (the port's ``.pt`` or the JAX
-package's ``.msgpack``, see :func:`load_checkpoint_variables`).
+package's ``.msgpack``, see :func:`load_checkpoint_variables`); a zoo
+bundle's config points ``train.job_dir`` at the bundle.
 
 With ``model.base_network.int8_static`` (the ``fast`` profile) the int8
 activation scales are calibrated once at load, as the JAX predictor does,
@@ -52,11 +53,6 @@ from luminoth_tpu_torch.utils.weights import load_flax_variables
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-ZOO_NOT_PORTED = (
-    "the checkpoint zoo (a checkpoint id or alias, and the default "
-    "'accurate') is not ported to PyTorch yet: pass a config, whose "
-    "train.job_dir holds the checkpoint"
-)
 
 
 def model_dtype(config):

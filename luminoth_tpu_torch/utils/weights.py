@@ -29,6 +29,7 @@ back: a model trained by the port leaves it in the flat flax layout, which
 """
 
 import os
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -80,6 +81,34 @@ def flatten_variables(variables):
 
     walk(variables, "")
     return flat
+
+
+# Flax module names holding a "/": ResNet units and VGG convs.
+_SLASHED_NAME = re.compile(r"(block\d+/unit_\d+|conv\d+/conv\d+_\d+)(/|$)")
+
+
+def nest_variables(flat):
+    """Nested flax variables (``{"params": {...}, ...}``) from the flat
+    ``"<collection>/<path>"`` layout: the inverse of
+    :func:`flatten_variables`. A flax module whose name holds a ``/``
+    (``block1/unit_1``, ``conv1/conv1_1``) stays one level, as in the
+    JAX package's trees."""
+    tree = {}
+    for path, value in flat.items():
+        parts, rest = [], path
+        while rest:
+            match = _SLASHED_NAME.match(rest)
+            if match:
+                parts.append(match.group(1))
+                rest = rest[match.end():]
+            else:
+                part, _, rest = rest.partition("/")
+                parts.append(part)
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree
 
 
 def torch_key(flax_path):

@@ -117,18 +117,34 @@ class TestResNet:
         "resnet_v2_50", "vgg_16", "truncated_vgg_16",
     ])
     def test_unported_architectures_raise(self, architecture):
-        with pytest.raises(NotImplementedError):
-            TruncatedBaseNetwork(base_config(architecture=architecture))
+        """These architectures are ported now (held against JAX in
+        ``tests/test_torch_architectures.py``): they build, with their
+        flax scope and map depth, and an unknown one still raises."""
+        trunk = TruncatedBaseNetwork(base_config(architecture=architecture))
+        scope = "resnet_v2_50" if architecture.startswith("resnet") else (
+            "vgg_16")
+        assert trunk.architecture == scope
+        assert trunk.out_channels == (1024 if scope == "resnet_v2_50"
+                                      else 512)
+        with torch.inference_mode():
+            out = trunk.eval()(torch.rand(1, 64, 80, 3) * 255)
+        assert out.shape == (1, 4, 5, trunk.out_channels)
+        with pytest.raises(ValueError, match="Invalid architecture"):
+            TruncatedBaseNetwork(base_config(architecture="resnet_v3_50"))
 
     @pytest.mark.parametrize("flag", ["torchvision_compat", "int8_trunk"])
     def test_unported_profiles_raise(self, flag):
-        """``torchvision_compat`` is not ported; the int8 trunk is, for
-        ResNet v1 only, so on v2 it still raises."""
+        """``torchvision_compat`` is ported (torchvision's strides); the
+        int8 trunk is ResNet v1 only, and on v2 the flag builds the float
+        trunk, as in the JAX package."""
         architecture = "resnet_v2_50" if flag == "int8_trunk" else (
             "resnet_v1_50")
-        with pytest.raises(NotImplementedError):
-            TruncatedBaseNetwork(base_config(architecture=architecture,
-                                             **{flag: True}))
+        trunk = TruncatedBaseNetwork(base_config(architecture=architecture,
+                                                 **{flag: True}))
+        module = getattr(trunk, architecture)
+        assert not trunk.int8
+        assert module.stride_first == (flag == "torchvision_compat")
+        assert type(module).__name__ == "ResNet"
 
 
 def rpn_config():

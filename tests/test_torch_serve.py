@@ -147,15 +147,20 @@ def test_predict_command_saves_media(small, tmp_path):
 
 
 @pytest.mark.parametrize("args, error", [
-    (["--checkpoint", "accurate"], NotImplementedError),
-    ([], NotImplementedError),  # no config: the zoo's default
+    (["--checkpoint", "accurate"], ValueError),
+    ([], ValueError),  # no config: the zoo's default, ``accurate``
 ])
 def test_predict_command_without_a_config_needs_the_zoo(tmp_path, args,
-                                                        error):
+                                                        error, monkeypatch):
+    """Without a config the command resolves the checkpoint in the zoo
+    (``tests/test_torch_zoo.py`` serves one); an empty zoo raises the JAX
+    package's error."""
+    monkeypatch.setenv("LUMI_HOME", str(tmp_path / "home"))
+    monkeypatch.delenv("LUMI_REMOTE_INDEX_URL", raising=False)
     paths = image_files(tmp_path, 1)
     result = CliRunner().invoke(port_predict.predict, [*paths, *args])
     assert isinstance(result.exception, error)
-    assert "zoo" in str(result.exception)
+    assert "'accurate' not found in index" in str(result.exception)
 
 
 @pytest.mark.parametrize("command", [
@@ -177,10 +182,11 @@ def test_commands_need_a_cuda_device(small, tmp_path, monkeypatch, command):
 def test_cli_lists_the_ported_commands():
     result = CliRunner().invoke(cli, ["--help"])
     assert result.exit_code == 0
-    assert cli.list_commands(None) == ["eval", "predict", "server", "train"]
+    assert cli.list_commands(None) == ["checkpoint", "eval", "predict",
+                                       "server", "train"]
     for name in cli.list_commands(None):
         assert name in result.output
-    for name in ("checkpoint", "dataset", "cloud"):
+    for name in ("dataset", "cloud"):
         assert CliRunner().invoke(cli, [name]).exit_code != 0
 
 
@@ -439,7 +445,10 @@ class TestWebServer:
         assert image == payload
         assert params == {"min_prob": "0.25"}
 
-    def test_web_command_without_a_config_needs_the_zoo(self):
+    def test_web_command_without_a_config_needs_the_zoo(self, tmp_path,
+                                                        monkeypatch):
+        monkeypatch.setenv("LUMI_HOME", str(tmp_path / "home"))
+        monkeypatch.delenv("LUMI_REMOTE_INDEX_URL", raising=False)
         result = CliRunner().invoke(web.web, ["--port", "0"])
-        assert isinstance(result.exception, NotImplementedError)
-        assert "zoo" in str(result.exception)
+        assert isinstance(result.exception, ValueError)
+        assert "'accurate' not found in index" in str(result.exception)

@@ -216,12 +216,15 @@ class TestPredictor:
         with pytest.raises(RuntimeError, match="CUDA"):
             predicting.PredictorNetwork(config, variables)
 
-    def test_checkpoint_loading_not_ported(self):
-        """The checkpoint zoo is not ported: a zoo checkpoint, or no config
-        (the zoo's default), raises."""
-        with pytest.raises(NotImplementedError, match="zoo"):
+    def test_checkpoint_loading_not_ported(self, tmp_path, monkeypatch):
+        """A zoo checkpoint, or no config (the zoo's default, ``accurate``),
+        resolves through the zoo (``tests/test_torch_zoo.py`` serves one);
+        on an empty zoo both raise the JAX package's ``ValueError``."""
+        monkeypatch.setenv("LUMI_HOME", str(tmp_path / "home"))
+        monkeypatch.delenv("LUMI_REMOTE_INDEX_URL", raising=False)
+        with pytest.raises(ValueError, match="'accurate' not found"):
             Detector(checkpoint="accurate")
-        with pytest.raises(NotImplementedError, match="zoo"):
+        with pytest.raises(ValueError, match="'accurate' not found"):
             Detector()
 
     def test_predictor_loads_the_newest_checkpoint(self, config, variables,

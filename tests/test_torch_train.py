@@ -404,8 +404,10 @@ class TestRun:
             want = other if name in backbone and name != key else variables
             np.testing.assert_array_equal(value, want[name], err_msg=name)
 
+        # torchvision-layout weights need torchvision_compat (the JAX
+        # package's ValueError; tests/test_torch_zoo.py loads them).
         np.savez(path, **backbone, **{"__meta__/layout": "torchvision"})
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="torchvision_compat"):
             trainer.load_pretrained_backbone(variables, cfg)
 
     def test_synthetic_records_read_back(self, tmp_path):
