@@ -1,11 +1,12 @@
 """The port's ``lumi`` command group: ``python -m luminoth_tpu_torch <cmd>``.
 
-Commands: ``train``, ``eval``, ``predict``, ``server`` (``server web``)
-and ``checkpoint`` (the zoo). The model commands take ``--device``
-(default: the current CUDA device; without one they raise, there is no
-CPU fallback). The JAX package's ``dataset`` group is not ported yet, and
-``cloud`` (Cloud TPU jobs) is not ported. Command modules are imported only when their command runs, so
-``--help`` stays fast.
+Commands: ``train``, ``eval``, ``predict``, ``server`` (``server web``),
+``checkpoint`` (the zoo) and ``dataset`` (``dataset transform`` and
+``dataset merge``: annotations to TFRecords). The model commands take
+``--device`` (default: the current CUDA device; without one they raise,
+there is no CPU fallback). ``cloud`` (Cloud TPU jobs) is not ported.
+Command modules are imported only when their command runs, so ``--help``
+stays fast.
 """
 
 import importlib
@@ -21,6 +22,7 @@ _COMMANDS = {
     "predict": ("luminoth_tpu_torch.predict", "predict"),
     "server": ("luminoth_tpu_torch.tools.server", "server"),
     "checkpoint": ("luminoth_tpu_torch.tools.checkpoint", "checkpoint"),
+    "dataset": ("luminoth_tpu_torch.tools.dataset", "dataset"),
 }
 
 _HELP = {
@@ -29,6 +31,7 @@ _HELP = {
     "predict": "Run a detector on images or video.",
     "server": "Serve a model over HTTP.",
     "checkpoint": "Manage the checkpoint zoo.",
+    "dataset": "Convert annotations to TFRecords and merge them.",
 }
 
 

@@ -1,1 +1,2 @@
-"""Command-line tools of the port (the ``server`` and ``checkpoint`` groups)."""
+"""Command-line tools of the port (the ``server``, ``checkpoint`` and
+``dataset`` groups)."""

@@ -19,8 +19,9 @@ device (``train.spatial_shards > 1``, a device list, or the
 ``LUMI_COORDINATOR``/``LUMI_DISTRIBUTED_AUTO`` multi-process environment),
 ``full_trace``/``save_timeline``, ``tf_debug``, ``remat``,
 ``base_network.train_batch_norm`` and ``ignore_scope``. The image and
-variable summaries (``image_vis``, ``var_vis``) and the run journal are
-skipped with a log line.
+variable summaries (``image_vis``, ``var_vis``) are skipped with a log
+line. A logged run appends its line to the run journal
+(``utils/experiments.py``, ``runs.json`` in the toolkit's home).
 """
 
 import collections
@@ -40,6 +41,7 @@ from luminoth_tpu_torch.models import get_model
 from luminoth_tpu_torch.models.base.base_network import check_trainable_config
 from luminoth_tpu_torch.utils.checkpoint_io import CheckpointManager
 from luminoth_tpu_torch.utils.config import get_config
+from luminoth_tpu_torch.utils.experiments import save_run
 from luminoth_tpu_torch.utils.predicting import model_dtype, resolve_device
 from luminoth_tpu_torch.utils.training import (
     build_trainable_mask,
@@ -216,7 +218,7 @@ def _summary_writer(run_dir):
 
 
 def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
-        max_steps=None, device=None):
+        environment=None, max_steps=None, device=None):
     """Train a model per config on one device. Returns a :class:`TrainState`.
 
     ``device``: a torch device (None: the current CUDA device; there is no
@@ -279,6 +281,12 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
         model, optimizer,
         reg_fn=lambda: l2_regularization_loss(params, decay).to(device),
     )
+
+    if not no_log:
+        try:
+            save_run(config, environment=environment)
+        except Exception:
+            pass
 
     save_secs = train_cfg.get("save_checkpoint_secs") or 600
     summary_secs = train_cfg.get("save_summaries_secs") or 30

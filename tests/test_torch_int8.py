@@ -63,7 +63,10 @@ from luminoth_tpu_torch.utils.weights import (
     load_flax_variables,
 )
 from test_torch_eval import CONFIG, rescaled_jax_variables
-from test_torch_isolation import jax_cache_isolation  # noqa: F401
+from test_torch_isolation import (  # noqa: F401
+    jax_cache_isolation,
+    lumi_home_isolation,
+)
 from test_torch_train import TestRun as _TrainRun  # not collected here
 from test_torch_train import write_records
 

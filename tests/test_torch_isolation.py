@@ -125,3 +125,19 @@ def test_the_fixture_holds_the_threshold_and_the_switches():
     assert getattr(jax.config, THRESHOLD) == 1e9
     assert os.environ["LUMI_NO_AOT_CACHE"] == "1"
     assert os.environ["LUMI_NO_COMPILATION_CACHE"] == "1"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def lumi_home_isolation(tmp_path_factory):
+    """A temporary ``LUMI_HOME`` for the module; yields its path.
+
+    ``train.run`` with logging on appends a line (with the working tree's
+    ``git diff``) to the run journal, ``runs.json`` in the home the port
+    shares with the JAX package. Every port test module that runs it
+    imports this fixture, so that no test writes the user's home; the
+    subprocesses those modules start inherit the variable.
+    """
+    home = tmp_path_factory.mktemp("lumi_home")
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setenv("LUMI_HOME", str(home))
+        yield str(home)

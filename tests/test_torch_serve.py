@@ -182,12 +182,15 @@ def test_commands_need_a_cuda_device(small, tmp_path, monkeypatch, command):
 def test_cli_lists_the_ported_commands():
     result = CliRunner().invoke(cli, ["--help"])
     assert result.exit_code == 0
-    assert cli.list_commands(None) == ["checkpoint", "eval", "predict",
-                                       "server", "train"]
+    assert cli.list_commands(None) == ["checkpoint", "dataset", "eval",
+                                       "predict", "server", "train"]
     for name in cli.list_commands(None):
         assert name in result.output
-    for name in ("dataset", "cloud"):
-        assert CliRunner().invoke(cli, [name]).exit_code != 0
+    assert CliRunner().invoke(cli, ["cloud"]).exit_code != 0
+    result = CliRunner().invoke(cli, ["dataset", "--help"])
+    assert result.exit_code == 0
+    for name in ("transform", "merge"):
+        assert name in result.output
 
 
 # ---------------------------------------------------------------- serving

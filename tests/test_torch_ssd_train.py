@@ -57,7 +57,10 @@ from luminoth_tpu_torch.utils.weights import (
     torch_state_from_flax,
 )
 from test_torch_eval import assert_metrics_equal
-from test_torch_isolation import jax_cache_isolation  # noqa: F401
+from test_torch_isolation import (  # noqa: F401
+    jax_cache_isolation,
+    lumi_home_isolation,
+)
 from test_torch_serve import multipart
 from test_torch_slice import assert_detections_equal
 from test_torch_ssd import GT, assert_objects_close, jax_variables

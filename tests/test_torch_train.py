@@ -41,6 +41,7 @@ from luminoth_tpu_torch.utils.weights import (
     load_flax_variables,
     torch_state_from_flax,
 )
+from test_torch_isolation import lumi_home_isolation  # noqa: F401
 
 LOSS_RTOL = 1e-5
 PARAM_RTOL, PARAM_ATOL = 1e-5, 1e-6
@@ -332,6 +333,35 @@ class TestRun:
         for name, p in resumed.model.named_parameters():
             assert torch.equal(p, saved["model"][name]) != p.requires_grad, (
                 name)
+
+    def test_journal_goes_to_the_module_home(self, tmp_path,
+                                             lumi_home_isolation):  # noqa: F811
+        """A logged ``run`` appends one line to ``runs.json`` in the
+        module's temporary ``LUMI_HOME`` (``lumi_home_isolation``), and
+        none to the user's home."""
+        from luminoth_tpu_torch.utils import homedir
+
+        home = homedir.get_home()
+        assert home == lumi_home_isolation != os.path.abspath(
+            homedir.DEFAULT_HOME)
+        journal = os.path.join(home, "runs.json")
+
+        def lines(path):
+            if not os.path.exists(path):
+                return []
+            with open(path) as f:
+                return [json.loads(line) for line in f]
+
+        before = len(lines(journal))
+        cfg = self._config(tmp_path, write_records(tmp_path))
+        trainer.run(cfg, max_steps=1, device="cpu")
+        added = lines(journal)[before:]
+        assert [line["config"]["train"]["job_dir"] for line in added] == [
+            str(tmp_path / "jobs")]
+        user = os.path.join(os.path.abspath(homedir.DEFAULT_HOME),
+                            "runs.json")
+        assert not any(line["config"]["train"].get("job_dir") == str(
+            tmp_path / "jobs") for line in lines(user))
 
     def test_cli_trains(self, tmp_path):
         data_dir = write_records(tmp_path)

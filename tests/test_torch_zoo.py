@@ -55,7 +55,10 @@ from luminoth_tpu_torch.utils.weights import (
 )
 from test_torch_eval import jax_train_state, rescaled_jax_variables
 from test_torch_eval import write_config
-from test_torch_isolation import jax_cache_isolation  # noqa: F401
+from test_torch_isolation import (  # noqa: F401
+    jax_cache_isolation,
+    lumi_home_isolation,
+)
 from test_torch_slice import BOX_ATOL, PROB_ATOL
 
 STEP = 5
