@@ -14,9 +14,16 @@ ResNet-101 v1, 80 classes, bf16, a 608x800 canvas, random weights from a
 seed), then trains that model through ``train.run`` on synthetic
 TFRecords (batch 8), resumes from its checkpoint, and holds the ROI
 backward kernel against its plain version on a train step's own tensors
-and times it there. Then it uses that checkpoint as a user would: ``lumi
-eval``'s ``evaluate_once`` over 36 synthetic val images (holding the
-uncapped per-class NMS launch against its plain version), eval on the card
+and times it there. The JAX package's training knobs follow on the same
+workload: batch-statistics batch norm, per-unit remat, the profiler trace
+and the image and variable summaries (``[train-knobs]``, with a
+batch-statistics step on the card against the CPU before [train],
+``[train-knobs-parity]``), a resume from [train]'s checkpoint with
+``ignore_scope`` (``[train-knobs-resume]``) and ``tf_debug`` on a
+NaN-poisoned weight (``[tf-debug]``). Then it uses that checkpoint as a
+user would: ``lumi eval``'s ``evaluate_once`` over 36 synthetic val images
+(holding the uncapped per-class NMS launch against its plain version),
+with ``files_per_class`` on 8 of them (``[eval-files]``), eval on the card
 against the CPU at a small size, the ``predict`` command against
 ``Detector.predict``, ``PredictorNetwork``'s single-image latency, and the
 web server with its micro-batcher under concurrent requests. Then SSD
@@ -24,7 +31,8 @@ web server with its micro-batcher under concurrent requests. Then SSD
 its forward and detection paths on the card against the CPU at a small
 size, serving at batches 32 and 128 (bf16) with the grouped NMS held
 against its plain version on each forward's own tensors, ``train.run`` at
-batch 32 (no kernel launched), and ``evaluate_once`` on that checkpoint
+batch 32 (no kernel launched by the steps; the ``image_vis: debug``
+monitor forward at step 1 launches the NMS, counted apart), and ``evaluate_once`` on that checkpoint
 (the per-class NMS held the same way). The int8 ``fast`` serving profile:
 its int8 layers on the card against the CPU at a small size
 (``[int8-parity]``), Faster R-CNN under ``fast`` at full width beside the
@@ -188,6 +196,34 @@ VOC_CLASSES = (
 FORMAT_IMAGES, FORMAT_SIZE = 4, (48, 64)
 VOC_TRAIN_IMAGES, VOC_VAL_IMAGES, VOC_SIZE = 24, 8, (375, 500)
 DATASET_STEPS = 3
+# [train-knobs]: [train]'s workload with the JAX package's training knobs:
+# batch-statistics batch norm, per-unit remat, a profiler trace of the
+# first 5 steps, and the image and variable summaries every 2 steps (steps
+# 1, 3 and 5: a monitor forward each, K1 twice and K2 once), 6 steps; then
+# 2 steps with remat off for the peak memory.
+KNOBS_STEPS, KNOBS_NO_REMAT_STEPS, KNOBS_DISPLAY_STEPS = 6, 2, 2
+KNOBS_TRAIN = {"remat": True, "full_trace": True, "image_vis": "train",
+               "display_every_steps": KNOBS_DISPLAY_STEPS,
+               "var_vis": "reduced"}
+KNOBS_BASE_NETWORK = {"architecture": "resnet_v1_101",
+                      "train_batch_norm": True}
+TRAIN_VIS = ("draw_gt_boxes", "draw_object_predictions",
+             "draw_top_nms_proposals")  # the "train" image_vis set
+# The trace names each kernel by its CUDA function.
+TRACE_KERNELS = {"k1": ("nms_alive_kernel", "nms_mask_kernel"),
+                 "k2": ("roi_crop_pool_kernel",),
+                 "k3": ("roi_crop_pool_bwd_kernel",)}
+# [train-knobs-parity], card against CPU, ||d|| <= rtol ||x|| + atol *
+# (global norm of x) per tensor: the running statistics' moves, and the
+# RPN and RCNN heads' updates; all the updates together within 0.2 of
+# their norm. Under batch statistics the trunk's gradients come out of a
+# cancellation that leaves them ~300x smaller than their terms, so their
+# relative error is that much larger than the convolutions' (see
+# tests/test_torch_train_knobs.py); the heads are not behind it.
+KNOBS_STATS_RTOL, KNOBS_STATS_ATOL = 1e-3, 1e-6
+KNOBS_PARITY_CANVAS = (128, 160)
+KNOBS_HEAD_RTOL, KNOBS_HEAD_ATOL, KNOBS_ALL_RTOL = 1e-2, 1e-6, 0.2
+FILES_PER_CLASS_IMAGES = 8  # [eval-files]: one batch of [eval]'s images
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(HERE, "build", "chip_smoke")
 
@@ -867,8 +903,10 @@ def random_gt(rng, batch, count, height, width, classes, max_gt):
     return gt
 
 
-def train_parity_inputs():
-    """Config, variables, batch and priorities of [train-parity]."""
+def train_parity_inputs(base_network=None, canvas=(160, 224)):
+    """Config, variables, batch and priorities of [train-parity]
+    (``base_network``: that section of the model instead of R101's;
+    ``canvas``: the images' height and width)."""
     import numpy as np
     import torch
     from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
@@ -878,17 +916,20 @@ def train_parity_inputs():
         load_flax_variables,
     )
 
+    model = {"rpn": {"proposals": {"pre_nms_top_n": 400,
+                                   "post_nms_top_n": 50}},
+             "rcnn": {"target": {"minibatch_size": 32}}}
+    if base_network:
+        model["base_network"] = base_network
     config = get_config(train_config(
-        os.path.join(BUILD, "train_parity.yml"), 80, "float32", (160, 224),
-        {"model": {"rpn": {"proposals": {"pre_nms_top_n": 400,
-                                         "post_nms_top_n": 50}},
-                   "rcnn": {"target": {"minibatch_size": 32}}}},
+        os.path.join(BUILD, "train_parity.yml"), 80, "float32", canvas,
+        {"model": model},
     ))
     variables = init_variables(config, SEED)
     rng = np.random.default_rng(SEED + 5)
     images = torch.from_numpy(
-        (rng.random((2, 160, 224, 3)) * 255).astype(np.float32))
-    gt = torch.from_numpy(random_gt(rng, 2, 4, 160, 224, 80, 8))
+        (rng.random((2, *canvas, 3)) * 255).astype(np.float32))
+    gt = torch.from_numpy(random_gt(rng, 2, 4, *canvas, 80, 8))
     # Rescale the classifiers as in check_small_parity (unsaturated logits).
     model = load_flax_variables(FasterRCNN(config), variables).eval()
     params = variables["params"]
@@ -915,14 +956,17 @@ def train_parity_inputs():
 
 def train_parity_step(device, inputs, inspect=None, proposals=None):
     """One train step on ``device``; returns (metrics, targets, grads,
-    updates, RPN proposals, decay shares), all on the CPU.
+    updates, RPN proposals, decay shares, running-statistics moves), all on
+    the CPU.
 
     ``updates`` are the trainable parameters' updates, -lr * trace: the
     first momentum step's trace is clip(g) + c p. They are read before
     they meet the parameters' float32 rounding (at lr 1e-4 most elements
     move by less than one ulp of the parameter); the parameters must then
-    hold exactly before + update, and no other state tensor may move.
-    ``decay shares`` are the decay's part of each update, -lr c p.
+    hold exactly before + update, and no other state tensor may move but
+    the running statistics under ``train_batch_norm`` (their moves,
+    after - before, are the last item). ``decay shares`` are the decay's
+    part of each update, -lr c p.
 
     ``inspect(model)`` may register hooks first. With ``proposals`` (the
     RPN proposal dict of another step), the step computes its own and then
@@ -983,9 +1027,13 @@ def train_parity_step(device, inputs, inspect=None, proposals=None):
     finally:
         model_module.rpn_proposal = rpn_proposal
     updates = {k: neg_lr * s["trace"] for k, s in optimizer.slots.items()}
+    stats = config.model.base_network.get("train_batch_norm")
+    moves = {}
     for k, value in model.state_dict().items():
-        if not torch.equal(value, before[k] + updates[k] if k in updates
-                           else before[k]):
+        if stats and k.endswith(("running_mean", "running_var")):
+            moves[k] = (value - before[k]).cpu()
+        elif not torch.equal(value, before[k] + updates[k] if k in updates
+                             else before[k]):
             raise AssertionError(f"{k} after the step on {device} is not "
                                  f"its value before plus its update")
     rpn = seen["preds"]["rpn_prediction"]
@@ -1002,6 +1050,7 @@ def train_parity_step(device, inputs, inspect=None, proposals=None):
         {k: v.cpu() for k, v in updates.items()},
         seen["proposals"],
         decay_shares,
+        moves,
     )
 
 
@@ -1114,9 +1163,69 @@ def check_train_parity(device):
           total_loss=f"{want[0]['total_loss']:.5f}")
 
 
-def full_train_config(run_name):
+def check_knobs_parity(device):
+    """[train-knobs-parity]: one train step with ``train_batch_norm`` and
+    ``remat`` (f32, R50, 2x128x160) with the kernels on the card against
+    the same step with the plain versions on the CPU, TF32 off: the losses,
+    the parameters' updates and the running statistics' moves."""
+    import torch
+    from luminoth_tpu_torch.ops import nms, roi_align
+
+    kernels = (nms.nms_alive_cuda, roi_align.roi_crop_pool_cuda,
+               roi_align.roi_crop_pool_backward_cuda)
+    t0 = time.perf_counter()
+    inputs = train_parity_inputs({"architecture": "resnet_v1_50",
+                                  "train_batch_norm": True, "remat": True},
+                                 canvas=KNOBS_PARITY_CANVAS)
+    before = [k.launches for k in kernels]
+    got = train_parity_step(device, inputs)
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    if launched != [1, 1, 1]:
+        raise AssertionError(f"[train-knobs-parity] the step launched K1, "
+                             f"K2 and K3 {launched} times, not once each")
+    want = train_parity_step("cpu", inputs, proposals=got[4])
+    swapped = reordered_proposals(got[4], want[4])
+    for name in ("rpn_cls", "rcnn_cls", "rcnn_selected"):
+        if not torch.equal(got[1][name], want[1][name]):
+            raise AssertionError(f"[train-knobs-parity] {name} targets "
+                                 f"differ between the card and the CPU")
+    loss_err = max(abs(got[0][k] - v) / max(abs(v), 1e-12)
+                   for k, v in want[0].items() if k.endswith("loss"))
+    heads = [k for k in want[3] if k.startswith(("rpn.", "rcnn."))]
+    head_ratio = worst_over_bound({k: got[3][k] for k in heads},
+                                  {k: want[3][k] for k in heads},
+                                  KNOBS_HEAD_RTOL, KNOBS_HEAD_ATOL)
+    all_err = math.sqrt(
+        sum(float((got[3][k] - v).double().square().sum())
+            for k, v in want[3].items())
+        / sum(float(v.double().square().sum()) for v in want[3].values()))
+    stats_ratio = worst_over_bound(got[6], want[6], KNOBS_STATS_RTOL,
+                                   KNOBS_STATS_ATOL)
+    still = [k for k, v in want[6].items() if not bool(v.any())]
+    if not (loss_err <= TRAIN_LOSS_RTOL and head_ratio <= 1.0
+            and all_err <= KNOBS_ALL_RTOL and stats_ratio <= 1.0) \
+            or still or not want[6] or not heads:
+        raise AssertionError(
+            f"[train-knobs-parity] losses relative {loss_err}, head updates "
+            f"{head_ratio} (error/bound), all updates relative {all_err}, "
+            f"statistics {stats_ratio} (error/bound), {len(still)} of "
+            f"{len(want[6])} statistics did not move")
+    phase("train-knobs-parity", model="resnet_v1_50", dtype="float32",
+          images="2x{}x{}".format(*KNOBS_PARITY_CANVAS), train_batch_norm=True, remat=True,
+          proposals_swapped_at_near_ties=swapped,
+          loss_max_rel_err=f"{loss_err:.2e}",
+          head_update_worst_err_over_bound=f"{head_ratio:.3f}",
+          all_updates_rel_err=f"{all_err:.2e}",
+          stats_worst_err_over_bound=f"{stats_ratio:.3f}",
+          stats_moved=len(want[6]),
+          total_loss=f"{want[0]['total_loss']:.5f}",
+          wall_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def full_train_config(run_name, train=None, model=None):
     """[train]'s configuration on fresh synthetic TFRecords, with an empty
-    job directory for ``run_name``; returns (config, job directory)."""
+    job directory for ``run_name`` (``train`` and ``model`` add to those
+    sections); returns (config, job directory)."""
     import shutil
 
     from luminoth_tpu_torch.utils.config import get_config
@@ -1128,8 +1237,8 @@ def full_train_config(run_name):
                                       TRAIN_IMAGES, 80, SEED + 6)
     config = get_config(train_config(
         os.path.join(BUILD, f"{run_name}.yml"), 80, "bfloat16", CANVAS,
-        {"train": {"job_dir": jobs, "run_name": run_name},
-         "dataset": {"dir": data}},
+        {"train": {"job_dir": jobs, "run_name": run_name, **(train or {})},
+         "dataset": {"dir": data}, "model": model or {}},
     ))
     return config, jobs
 
@@ -1232,7 +1341,8 @@ def train(device, card):
           k1_launches=launches["k1"], k2_launches=launches["k2"],
           k3_launches=launches["k3"],
           losses="/".join(f"{v:.4f}" for v in losses))
-    return {k: first[k] + launches[k] for k in kernels}, captured[0]
+    return ({k: first[k] + launches[k] for k in kernels}, captured[0],
+            (step_ms, peak_gb))
 
 
 def recheck_k3_on_trained_tensors(captured):
@@ -1265,6 +1375,376 @@ def recheck_k3_on_trained_tensors(captured):
           f32_plain_ms=f"{f32_plain_ms:.4f}",
           f32_bound_ms=f"{k3_bound(fm32, boxes, grad32)[0]:.4f}")
     return out["max_abs_err"]
+
+
+@contextlib.contextmanager
+def monitored(counts, captured=None):
+    """Binds ``train.monitor_forward`` (the image-vis hook's forward) to one
+    that counts, in ``counts``, its forwards and the K1, K2 and K3 launches
+    made inside them, apart from the steps: K1 and K2 are bound to
+    capturing wrappers for its span, so the kernels' own counts keep the
+    steps' launches only. ``captured`` (``{"k1": [], "k2": []}``) keeps
+    their inputs. The peak memory outside the monitor forwards goes to
+    ``counts["steps_peak"]`` (read it again after the run: the peak is
+    reset after each monitor forward), theirs to ``counts["monitor_peak"]``,
+    and the device ms of each to ``counts["monitor_ms"]`` (CUDA events; the
+    capture copies of K1's and K2's inputs included).
+    """
+    import torch
+    from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.ops import roi_align
+
+    captured = {"k1": [], "k2": []} if captured is None else captured
+    counts.update(forwards=0, k1=0, k2=0, k3=0, steps_peak=0,
+                  monitor_peak=0, monitor_ms=[])
+    forward = trainer.monitor_forward
+
+    def counted(model, device_batch):
+        counts["steps_peak"] = max(counts["steps_peak"],
+                                   torch.cuda.max_memory_allocated())
+        k3 = roi_align.roi_crop_pool_backward_cuda.launches
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with capturing_k1(captured["k1"]) as k1, \
+                capturing_k2(captured["k2"]) as k2:
+            events[0].record()
+            out = forward(model, device_batch)
+            events[1].record()
+        events[1].synchronize()
+        counts["monitor_ms"].append(events[0].elapsed_time(events[1]))
+        counts["forwards"] += 1
+        counts["k1"] += k1.launches
+        counts["k2"] += k2.launches
+        counts["k3"] += roi_align.roi_crop_pool_backward_cuda.launches - k3
+        counts["monitor_peak"] = max(counts["monitor_peak"],
+                                     torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    trainer.monitor_forward = counted
+    try:
+        yield counts
+    finally:
+        trainer.monitor_forward = forward
+
+
+def knobs_run(device, name, steps, train, captured=None):
+    """``train.run`` of [train]'s workload with ``train`` added to its
+    train section and the knobs' base network; returns (state, launches of
+    the steps, the monitor's counts, the steps' peak bytes, wall s, run
+    dir)."""
+    import torch
+    from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.ops import nms, roi_align
+
+    config, jobs = full_train_config(
+        name, train=train, model={"base_network": KNOBS_BASE_NETWORK})
+    kernels = {"k1": nms.nms_alive_cuda, "k2": roi_align.roi_crop_pool_cuda,
+               "k3": roi_align.roi_crop_pool_backward_cuda}
+    for kernel in kernels.values():
+        kernel.launches = 0
+    counts = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with monitored(counts, captured):
+        state = trainer.run(config, max_steps=steps, device=device)
+    wall_s = time.perf_counter() - t0
+    peak = max(counts["steps_peak"], torch.cuda.max_memory_allocated())
+    return (state, {k: f.launches for k, f in kernels.items()}, counts,
+            peak, wall_s, os.path.join(jobs, name))
+
+
+def trace_kernels(trace_dir):
+    """``{CUDA kernel name: total device us}`` of the ``torch.profiler``
+    trace in ``trace_dir`` (one ``*.pt.trace.json``)."""
+    import collections
+    import glob
+
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace files in {trace_dir}: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    totals = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            totals[e["name"]] += float(e.get("dur", 0.0))
+    return totals
+
+
+def short_kernel_name(name):
+    """A kernel's function name without its namespace, template arguments
+    and parameters."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    for cut in ("<", "("):
+        name = name.split(cut)[0]
+    return name.split("::")[-1]
+
+
+def summaries(run_dir):
+    """``{kind: {step: [tags]}}`` of the event file in ``run_dir``."""
+    import glob
+
+    from luminoth_tpu_torch.formats.tfevents import read_events
+
+    files = glob.glob(os.path.join(run_dir, "events.out.tfevents.*"))
+    if len(files) != 1:
+        raise AssertionError(f"event files in {run_dir}: {files}")
+    out = {}
+    for step, tag, kind, _ in read_events(files[0]):
+        out.setdefault(kind, {}).setdefault(step, []).append(tag)
+    return out
+
+
+def train_knobs(device, card, train_phase):
+    """[train-knobs]: [train]'s workload (R101, 80 classes, bf16, batch 8,
+    608x800, ``fine_tune_from: block2``) through ``train.run`` with
+    ``train_batch_norm``, ``remat``, ``full_trace``, ``image_vis: train``
+    and ``var_vis: reduced`` every 2 steps, 6 steps; then 2 steps of the
+    same with ``remat: False``. ``train_phase`` is [train]'s (steady step
+    ms, peak GB), printed beside."""
+    import torch
+    from luminoth_tpu_torch.utils.weights import flax_paths
+
+    captured = {"k1": [], "k2": []}
+    state, steps, monitor, peak, wall_s, run_dir = knobs_run(
+        device, "knobs", KNOBS_STEPS, KNOBS_TRAIN, captured)
+    losses = [h["total_loss"] for h in state.history]
+    triggers = list(range(1, KNOBS_STEPS + 1, KNOBS_DISPLAY_STEPS))
+    if state.step != KNOBS_STEPS or len(losses) != KNOBS_STEPS or not all(
+            map(math.isfinite, losses)):
+        raise AssertionError(f"[train-knobs] {state.step} steps, losses "
+                             f"{losses}")
+    want_monitor = {"forwards": len(triggers), "k1": 2 * len(triggers),
+                    "k2": len(triggers), "k3": 0}
+    if steps != {k: KNOBS_STEPS for k in steps} or {
+            k: monitor[k] for k in want_monitor} != want_monitor:
+        raise AssertionError(
+            f"[train-knobs] the steps launched {steps} (want K1, K2 and K3 "
+            f"once per step), the monitor forwards "
+            f"{ {k: monitor[k] for k in want_monitor} } (want {want_monitor})")
+    # The running statistics moved from the flax init (mean 0, var 1)
+    # everywhere: the frozen block1, the trainable trunk and the tail.
+    paths = flax_paths(state.model)
+    stats = {paths[k]: v for k, v in state.model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    still = [p for p, v in stats.items()
+             if torch.equal(v, torch.zeros_like(v) if p.endswith("/mean")
+                            else torch.ones_like(v))]
+    regions = {r: sum(r in p for p in stats)
+               for r in ("/block1/", "/block3/", "base_network_tail")}
+    if still or not all(regions.values()):
+        raise AssertionError(f"[train-knobs] {len(still)} running "
+                             f"statistics did not move: {still[:4]}")
+    # The monitor forwards' own K1 and K2 launches, against the plain
+    # versions.
+    survivors, k2_errors = [], []
+    hold_k1(captured["k1"], "train-knobs", survivors=survivors, timed=False)
+    hold_k2(captured["k2"], "train-knobs", errors=k2_errors, timed=False)
+    del captured
+    # The profiler trace of the first 5 steps names the three kernels.
+    names = trace_kernels(os.path.join(run_dir, "profile"))
+    traced = {k: sorted(n for n in names if any(f in n for f in funcs))
+              for k, funcs in TRACE_KERNELS.items()}
+    if not all(traced.values()):
+        raise AssertionError(f"[train-knobs] the trace names {traced}")
+    by_name = {}
+    for name, us in names.items():
+        key = short_kernel_name(name)
+        by_name[key] = by_name.get(key, 0.0) + us
+    kernel_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    # The event file: the 3 "train" renderings and every parameter's mean
+    # at each trigger.
+    written = summaries(run_dir)
+    params = sum(p.startswith("params/") for p in paths.values())
+    images = {s: sorted(t.split("/", 1)[1] for t in tags)
+              for s, tags in written.get("image", {}).items()}
+    means = {s: sum(t.startswith("variables/") for t in tags)
+             for s, tags in written.get("simple_value", {}).items()}
+    if images != {s: sorted(TRAIN_VIS) for s in triggers} or {
+            s: means.get(s, 0) for s in triggers} != {
+                s: params for s in triggers}:
+        raise AssertionError(f"[train-knobs] image summaries {images}, "
+                             f"variable means {means} (want {params} at "
+                             f"{triggers})")
+    history = state.history
+    steady = [h["device_ms"] for h in history[1:]]
+    step_ms = sum(steady) / len(steady)
+    del state
+    # The same config with remat off, 2 steps: the steps' peak memory.
+    plain, _, _, plain_peak, plain_wall_s, _ = knobs_run(
+        device, "knobs_no_remat", KNOBS_NO_REMAT_STEPS,
+        {**KNOBS_TRAIN, "remat": False})
+    del plain
+    if not peak < plain_peak:
+        raise AssertionError(f"[train-knobs] steps' peak {peak / 1e9:.2f} "
+                             f"GB with remat, {plain_peak / 1e9:.2f} without")
+    train_ms, train_peak_gb = train_phase
+    phase("train-knobs", model="resnet_v1_101", classes=80,
+          dtype="bfloat16", canvas=f"{CANVAS[0]}x{CANVAS[1]}", batch=BATCH,
+          steps=KNOBS_STEPS, train_batch_norm=True, remat=True,
+          full_trace=True, image_vis="train", var_vis="reduced",
+          k1_launches=steps["k1"], k2_launches=steps["k2"],
+          k3_launches=steps["k3"], monitor_forwards=monitor["forwards"],
+          monitor_k1_launches=monitor["k1"],
+          monitor_k2_launches=monitor["k2"],
+          k1_survivors="/".join(map(str, survivors)),
+          k2_max_abs_err=max(k2_errors),
+          losses="/".join(f"{v:.4f}" for v in losses),
+          step_device_ms="/".join(f"{h['device_ms']:.1f}" for h in history),
+          steady_step_ms=f"{step_ms:.2f}",
+          train_steady_step_ms=f"{train_ms:.2f}",
+          steps_peak_gb=f"{peak / 1e9:.2f}",
+          no_remat_steps_peak_gb=f"{plain_peak / 1e9:.2f}",
+          monitor_peak_gb=f"{monitor['monitor_peak'] / 1e9:.2f}",
+          monitor_device_ms="/".join(f"{ms:.1f}"
+                                     for ms in monitor["monitor_ms"]),
+          train_peak_gb=f"{train_peak_gb:.1f}",
+          stats_moved=len(stats), traced_kernels=",".join(
+              sorted(f for funcs in TRACE_KERNELS.values() for f in funcs
+                     if any(f in n for n in names))),
+          image_summaries=sum(len(v) for v in images.values()),
+          variable_means=sum(means.values()),
+          traced_kernel_ms=f"{kernel_ms:.1f}", traced_top="/".join(
+              f"{n}:{100 * us / 1e3 / kernel_ms:.1f}%" for n, us in top),
+          wall_s=f"{wall_s:.1f}", no_remat_wall_s=f"{plain_wall_s:.1f}",
+          card=f"'{card}'")
+    return {"k1": steps["k1"] + monitor["k1"],
+            "k2": steps["k2"] + monitor["k2"], "k3": steps["k3"]}, max(
+                k2_errors)
+
+
+def knobs_resume(device):
+    """[train-knobs-resume]: [train]'s checkpoint restored with
+    ``ignore_scope: rcnn`` as ``train.run`` restores it (its fresh model
+    and optimizer as the template): the ``rcnn`` tensors keep their fresh
+    init (their optimizer slots their zeros), every other tensor takes the
+    checkpoint's value, exactly. (A ``train.run`` resumed so trains on at
+    once; ``tests/test_torch_train.py`` holds the restore it makes.)"""
+    import glob
+
+    import torch
+    from luminoth_tpu_torch.models import get_model
+    from luminoth_tpu_torch.utils.checkpoint_io import CheckpointManager
+    from luminoth_tpu_torch.utils.predicting import model_dtype
+    from luminoth_tpu_torch.utils.training import (
+        build_trainable_mask,
+        get_optimizer,
+    )
+    from luminoth_tpu_torch.utils.weights import (
+        flax_paths,
+        init_variables,
+        load_flax_variables,
+    )
+
+    t0 = time.perf_counter()
+    config, jobs = full_train_config("resume_scope",
+                                     train={"ignore_scope": "rcnn"})
+    model = get_model(config.model.type)(config, dtype=model_dtype(config))
+    model = load_flax_variables(model, init_variables(config, SEED)).to(
+        device)
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    mask = build_trainable_mask(model, config.model)
+    optimizer, _ = get_optimizer(config.train, dict(model.named_parameters()),
+                                 trainable_mask=mask)
+    ckpt = os.path.join(jobs, "smoke", "ckpt")
+    restored = CheckpointManager(ckpt).restore_latest(
+        map_location=device, template={"step": 0, "model": model.state_dict(),
+                                       "optimizer": optimizer.state_dict()},
+        paths=flax_paths(model), ignore_scope="rcnn")
+    saved_path = sorted(glob.glob(os.path.join(ckpt, "*.pt")))[-1]
+    saved = torch.load(saved_path, map_location=device, weights_only=True)
+    wrong = [k for k, v in restored["model"].items()
+             if not torch.equal(v, fresh[k] if k.startswith("rcnn.")
+                                else saved["model"][k])]
+    wrong += [k for k, slots in restored["optimizer"]["slots"].items()
+              for slot, v in slots.items()
+              if not torch.equal(v, torch.zeros_like(v) if k.startswith(
+                  "rcnn.") else saved["optimizer"]["slots"][k][slot])]
+    scoped = sum(k.startswith("rcnn.") for k in restored["model"])
+    if wrong or not scoped or restored["step"] != saved["step"]:
+        raise AssertionError(f"[train-knobs-resume] {len(wrong)} tensors "
+                             f"wrong: {wrong[:4]}; step {restored['step']}")
+    phase("train-knobs-resume", ignore_scope="rcnn", step=restored["step"],
+          rcnn_tensors_fresh=scoped,
+          other_tensors_restored=len(restored["model"]) - scoped,
+          wall_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def tf_debug_phase(device):
+    """[tf-debug]: ``train.run`` of [train]'s workload with ``tf_debug`` and
+    the trunk's first conv kernel holding a NaN (through
+    ``base_network.weights``) raises ``FloatingPointError`` at step 1, at
+    that conv, before any kernel launch or checkpoint."""
+    import numpy as np
+    from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.ops import nms, roi_align
+
+    weights = os.path.join(BUILD, "poisoned.npz")
+    kernel = (np.random.default_rng(SEED).standard_normal((7, 7, 3, 64))
+              * 0.05).astype(np.float32)
+    kernel[0, 0, 0, 0] = np.nan
+    np.savez(weights, **{
+        "params/base_network/resnet_v1_101/conv1/kernel": kernel})
+    config, jobs = full_train_config(
+        "tf_debug", train={"tf_debug": True},
+        model={"base_network": {"architecture": "resnet_v1_101",
+                                "weights": weights}})
+    kernels = (nms.nms_alive_cuda, roi_align.roi_crop_pool_cuda,
+               roi_align.roi_crop_pool_backward_cuda)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer.run(config, max_steps=2, device=device)
+    except FloatingPointError as e:
+        message = str(e)
+    else:
+        raise AssertionError("[tf-debug] no FloatingPointError")
+    ckpt = os.path.join(jobs, "tf_debug", "ckpt")
+    launched = [k.launches for k in kernels]
+    if "at step 1;" not in message or "resnet_v1_101/conv1" not in message \
+            or any(launched) or os.listdir(ckpt):
+        raise AssertionError(f"[tf-debug] raised {message!r}, launches "
+                             f"{launched}, checkpoints {os.listdir(ckpt)}")
+    phase("tf-debug", raised="FloatingPointError", step=1,
+          at="base_network/resnet_v1_101/conv1", launches=sum(launched),
+          wall_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def eval_files_phase(model, config):
+    """[eval-files]: ``evaluate_once`` with ``files_per_class: 1`` over
+    the first 8 of [eval]'s images, with the port's summary writer: at
+    most one ``draw_object_predictions`` image per class."""
+    import shutil
+
+    from luminoth_tpu_torch import eval as evaluator
+    from luminoth_tpu_torch.formats.tfevents import SummaryWriter
+
+    out = os.path.join(BUILD, "eval_files")
+    shutil.rmtree(out, ignore_errors=True)
+    writer = SummaryWriter(out)
+    read = path_launches()
+    t0 = time.perf_counter()
+    metrics = evaluator.evaluate_once(
+        config, model, writer=writer,
+        max_batches=FILES_PER_CLASS_IMAGES // BATCH, files_per_class=1)
+    wall_s = time.perf_counter() - t0
+    writer.close()
+    launches = read()
+    check_forwards("eval-files", launches, FILES_PER_CLASS_IMAGES // BATCH)
+    tags = summaries(out).get("image", {}).get(0, [])
+    classes = [t.split("/")[0] for t in tags]
+    if metrics["images"] != FILES_PER_CLASS_IMAGES or not tags or any(
+            not t.endswith("/1") for t in tags) or len(set(classes)) != len(
+                classes):
+        raise AssertionError(f"[eval-files] {metrics['images']} images, "
+                             f"image summaries {tags}")
+    phase("eval-files", images=metrics["images"], files_per_class=1,
+          image_summaries=len(tags), k1_launches=launches["k1"],
+          k2_launches=launches["k2"], wall_s=f"{wall_s:.1f}")
+    return launches
 
 
 def checkpoint_config(name, proposals=None):
@@ -1377,7 +1857,7 @@ def eval_phase(device, card):
           threshold=thr, keep=keep, equal=True,
           survivors=survivors[0], kernel_ms=f"{k1_ms:.4f}",
           plain_ms=f"{k1_plain_ms:.4f}")
-    return launches
+    return launches, model, config
 
 
 def check_eval_parity(device):
@@ -2047,19 +2527,31 @@ def ssd_train(device, card):
     for kernel in kernels.values():
         kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    # SSD's base config renders image_vis "debug" at step 1: a monitor
+    # forward in eval mode, whose detections launch K1. Its launches are
+    # counted apart; the steps launch no kernel.
+    monitor, captured = {}, {"k1": [], "k2": []}
     t0 = time.perf_counter()
-    state = trainer.run(config, max_steps=SSD_TRAIN_STEPS, device=device)
+    with monitored(monitor, captured):
+        state = trainer.run(config, max_steps=SSD_TRAIN_STEPS, device=device)
     wall_s = time.perf_counter() - t0
     launches = {k: f.launches for k, f in kernels.items()}
+    monitor_launches = {k: monitor[k] for k in kernels}
     losses = [h["total_loss"] for h in state.history]
     ckpt = os.path.join(jobs, "ssd", "ckpt", f"ckpt_step_{SSD_TRAIN_STEPS}.pt")
     if (state.step != SSD_TRAIN_STEPS or any(launches.values())
+            or monitor["forwards"] != 1 or monitor_launches["k1"] < 1
+            or monitor_launches["k2"] or monitor_launches["k3"]
             or len(losses) != SSD_TRAIN_STEPS
             or not all(map(math.isfinite, losses))
             or not os.path.exists(ckpt)):
         raise AssertionError(
-            f"[ssd-train] {state.step} steps, launches {launches}, losses "
-            f"{losses}, checkpoint {os.path.exists(ckpt)}")
+            f"[ssd-train] {state.step} steps, launches {launches}, monitor "
+            f"forwards {monitor['forwards']} launching {monitor_launches}, "
+            f"losses {losses}, checkpoint {os.path.exists(ckpt)}")
+    hold_k1(captured["k1"], "ssd-train", timed=False)
+    peak_gb = max(monitor["steps_peak"],
+                  torch.cuda.max_memory_allocated()) / 1e9
     steady = [h["device_ms"] for h in state.history[1:]]
     step_ms = sum(steady) / len(steady)
     # Further steps back to back on one uploaded batch, without the loader:
@@ -2079,7 +2571,8 @@ def ssd_train(device, card):
           dtype="bfloat16", canvas=f"{SSD_SIZE}x{SSD_SIZE}",
           batch=SSD_TRAIN_BATCH, steps=state.step,
           k1_launches=launches["k1"], k2_launches=launches["k2"],
-          k3_launches=launches["k3"],
+          k3_launches=launches["k3"], monitor_forwards=monitor["forwards"],
+          monitor_k1_launches=monitor_launches["k1"],
           losses="/".join(f"{v:.4f}" for v in losses),
           step_device_ms="/".join(f"{h['device_ms']:.1f}"
                                   for h in state.history),
@@ -2087,10 +2580,9 @@ def ssd_train(device, card):
           images_per_s=f"{1000 * SSD_TRAIN_BATCH / step_ms:.2f}",
           back_to_back_step_ms=f"{b2b_ms:.2f}",
           back_to_back_images_per_s=f"{1000 * SSD_TRAIN_BATCH / b2b_ms:.2f}",
-          wall_s=f"{wall_s:.1f}",
-          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.1f}",
+          wall_s=f"{wall_s:.1f}", peak_gb=f"{peak_gb:.1f}",
           card=f"'{card}'")
-    return launches
+    return launches, monitor_launches
 
 
 def ssd_eval(device, card):
@@ -3426,6 +3918,8 @@ def unit_scale(grad):
 def main():
     import torch
 
+    start = time.perf_counter()
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3479,12 +3973,21 @@ def main():
     del detector
     torch.cuda.empty_cache()
     check_train_parity(device)
-    trained, captured = train(device, card)
+    check_knobs_parity(device)
+    trained, captured, train_numbers = train(device, card)
     k3_err = max(k3_err, recheck_k3_on_trained_tensors(captured))
     del captured
     torch.cuda.empty_cache()
-    paths = {"serve": served, "fast": fast, "train": trained,
-             "eval": eval_phase(device, card)}
+    paths = {"serve": served, "fast": fast, "train": trained}
+    paths["train_knobs"], knobs_k2_err = train_knobs(device, card,
+                                                     train_numbers)
+    torch.cuda.empty_cache()
+    knobs_resume(device)
+    tf_debug_phase(device)
+    torch.cuda.empty_cache()
+    paths["eval"], eval_model, eval_config = eval_phase(device, card)
+    paths["eval_files"] = eval_files_phase(eval_model, eval_config)
+    del eval_model
     check_eval_parity(device)
     paths["predict"] = predict_phase(device)
     paths["serve_latency"] = serve_latency(device, card)
@@ -3503,11 +4006,12 @@ def main():
     paths["ssd_fast"], ssd_fast_k1 = ssd_fast_serve(device, card)
     k1_times.update(ssd_fast_k1)
     torch.cuda.empty_cache()
-    paths["ssd_train"] = ssd_train(device, card)
+    paths["ssd_train"], paths["ssd_train_monitor"] = ssd_train(device, card)
     paths["ssd_eval"] = ssd_eval(device, card)
     paths["fast_predict"] = fast_predict_phase(device)
     torch.cuda.empty_cache()
     check_int8_parity(device)
+    phase("script", seconds=f"{time.perf_counter() - start:.1f}")
 
     rpn_ms, rpn_plain_ms, rpn_bound_ms, rpn_bound_by = k1_times[(8, 12000)]
     k2_shapes = [*k2_backbones, *(k2 for k2, _ in pretrained.values())]
@@ -3539,7 +4043,7 @@ def main():
          "launches": sum(by_path("k2").values()),
          "launches_by_path": by_path("k2"),
          "max_abs_err": max([k2_err, fast_k2["max_abs_err"],
-                             dataset_k2_err]
+                             dataset_k2_err, knobs_k2_err]
                             + [x["max_abs_err"] for x in k2_shapes]), **k2,
          "shapes": [{"rois": K2_SHAPE[1], "channels": K2_SHAPE[4],
                      "on": "random boxes", "max_abs_err": k2_err, **k2},

@@ -13,9 +13,11 @@ Checkpoints are the port's ``ckpt_step_<N>.pt`` and the JAX package's
 ``ckpt_step_<N>.msgpack`` under ``<job_dir>/<run_name>/ckpt``. The model
 carries its weights, so :func:`evaluate_once` takes no ``variables``.
 
-Not ported: data-parallel evaluation over several devices, and the
-``files_per_class`` image summaries (they need ``image_vis``; skipped with a
-log line).
+With a summary writer, ``files_per_class`` > 0 writes up to that many
+``draw_object_predictions`` images per detected class (tags
+``<class>/<n>``, probability at least 0.5), as the JAX package does.
+
+Not ported: data-parallel evaluation over several devices.
 """
 
 import logging
@@ -29,12 +31,14 @@ import torch
 from luminoth_tpu_torch.datasets import get_dataset
 from luminoth_tpu_torch.models import get_model
 from luminoth_tpu_torch.ops.np_boxes import bbox_overlap
-from luminoth_tpu_torch.train import _summary_writer, prefetch_to_device
+from luminoth_tpu_torch.formats.tfevents import SummaryWriter
+from luminoth_tpu_torch.train import prefetch_to_device
 from luminoth_tpu_torch.utils.checkpoint_io import (
     CheckpointManager,
     load_model_weights,
 )
 from luminoth_tpu_torch.utils.config import get_config, proposals_config
+from luminoth_tpu_torch.utils.image_vis import draw_object_predictions
 from luminoth_tpu_torch.utils.predicting import model_dtype, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -203,9 +207,27 @@ def evaluate_once(config, model, writer=None, global_step=0, forward=None,
     if model is not None:
         model.eval()
         device = next(model.parameters()).device
-    if writer is not None and files_per_class:
-        logger.info("eval image summaries (files_per_class) are not "
-                    "ported: skipped")
+    saved_per_class = {}
+
+    def maybe_save_images(batch, b, objects, labels, probs, keep):
+        if writer is None or not files_per_class:
+            return
+        for cls in set(labels[keep].astype(int).tolist()):
+            if saved_per_class.get(cls, 0) >= files_per_class:
+                continue
+            saved_per_class[cls] = saved_per_class.get(cls, 0) + 1
+            img = draw_object_predictions(
+                batch["image"][b],
+                prediction_dict={
+                    "objects": objects, "labels": labels, "probs": probs,
+                    "valid": keep,
+                },
+                min_prob=0.5,
+            )
+            writer.add_image(
+                f"{cls}/{saved_per_class[cls]}", img, global_step,
+                dataformats="HWC",
+            )
 
     output = {k: [] for k in
               ("bboxes", "classes", "scores", "gt_bboxes", "gt_classes")}
@@ -242,6 +264,8 @@ def evaluate_once(config, model, writer=None, global_step=0, forward=None,
             gt_keep = gt[:, 4] >= 0
             output["gt_bboxes"].append(gt[gt_keep][:, :4])
             output["gt_classes"].append(gt[gt_keep][:, 4].astype(np.int64))
+            maybe_save_images(pending_batch, b, objects[b], labels[b],
+                              probs[b], keep)
         # Weight each batch's mean loss by its REAL image count so a
         # padded final batch does not count like a full batch.
         for name, value in zip(names, losses):
@@ -403,7 +427,7 @@ def watch_checkpoints(config, model, run_dir, watch=True,
     help="Override model config params.")
 @click.option(
     "--files-per-class", type=int, default=10,
-    help="How many files per class to save (visualization; not ported).")
+    help="How many files per class to save (visualization).")
 @click.option(
     "--max-detections", type=int, default=100,
     help="Maximum detections considered per image.")
@@ -422,7 +446,7 @@ def eval(dataset_split, config_files, watch, from_global_step,
 
     run_dir = os.path.join(config.train.get("job_dir", "jobs/"),
                            config.train.get("run_name") or "default")
-    writer = _summary_writer(os.path.join(run_dir, dataset_split))
+    writer = SummaryWriter(os.path.join(run_dir, dataset_split))
     watch_checkpoints(
         config, model, run_dir, watch=watch,
         from_global_step=from_global_step, writer=writer,

@@ -16,11 +16,15 @@ float path in it (the flags are inert in training, as in JAX). The twins
 are ResNet v1 only: on v2 or VGG-16 the flags build the float modules, as
 the JAX package does.
 
-Training keeps batch norm in its inference form (``train_batch_norm:
-False``, the detection default): the running statistics stay fixed and
-the affine ``weight``/``bias`` train. Updating the statistics
-(``train_batch_norm: True``) and rematerialization (``remat``) are not
-ported; :func:`check_trainable_config` raises for them.
+Training keeps batch norm in its inference form by default
+(``train_batch_norm: False``, the detection default): the running
+statistics stay fixed and the affine ``weight``/``bias`` train. With
+``train_batch_norm: True`` every batch norm of the trunk (the frozen units
+before ``fine_tune_from`` too, as in JAX) and of the ``block4`` tail
+normalises with the batch's statistics while the model trains, and moves
+its running statistics. ``remat`` recomputes each trunk unit in the
+backward pass (``resnet.remat_unit``). VGG-16 has no batch norm and no
+remat, so neither flag changes it, as in JAX.
 """
 
 import torch
@@ -30,7 +34,11 @@ from luminoth_tpu_torch.models.base.quantized_tail import (
     Int8ResNetTail,
     Int8ResNetTrunk,
 )
-from luminoth_tpu_torch.models.base.resnet import ResNet, ResNetTail
+from luminoth_tpu_torch.models.base.resnet import (
+    ResNet,
+    ResNetTail,
+    set_train_batch_norm,
+)
 from luminoth_tpu_torch.models.base.vgg import VGG16
 
 _R_MEAN = 123.68
@@ -80,16 +88,6 @@ def _parse_architecture(architecture):
     return "vgg", None, 16
 
 
-def check_trainable_config(config):
-    """Raise ``NotImplementedError`` for base-network training knobs the port
-    does not have (``train_batch_norm``, ``remat``)."""
-    for flag in ("train_batch_norm", "remat"):
-        if config.get(flag):
-            raise NotImplementedError(
-                f"model.base_network.{flag} is not ported to PyTorch yet"
-            )
-
-
 class TruncatedBaseNetwork(nn.Module):
     """Backbone truncated at an endpoint, producing the detection map."""
 
@@ -124,6 +122,9 @@ class TruncatedBaseNetwork(nn.Module):
                 version=version,
                 stride_first=stride_first,
             )
+        if kind == "resnet":
+            trunk.remat = bool(config.get("remat"))
+            set_train_batch_norm(trunk, config.get("train_batch_norm"))
         self.add_module(self.architecture, trunk)
         self.is_vgg = kind != "resnet"
 
@@ -164,6 +165,7 @@ class BaseNetworkTail(nn.Module):
             else:
                 tail = ResNetTail(depth=depth, depth_in=depth_in,
                                   version=version)
+            set_train_batch_norm(tail, config.get("train_batch_norm"))
             self.add_module(self.architecture, tail)
             self.out_channels = tail.out_channels
 

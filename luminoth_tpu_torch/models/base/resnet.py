@@ -18,11 +18,20 @@ views at the public functions cost no copy. Parameters stay float32 and
 are cast to the compute dtype of the input (bfloat16 on the serving path),
 as flax's ``dtype`` does; batch-norm statistics stay float32. Module and
 parameter names follow the flax variable paths (see ``utils/weights.py``).
+
+Two training knobs of the JAX package: ``BatchNorm.train_batch_norm``
+(normalise with the batch's statistics and move the running ones, while
+the module is in training) and ``ResNet.remat`` (recompute each
+bottleneck in the backward pass instead of keeping its activations, the
+JAX ``nn.remat`` per unit).
 """
+
+import contextvars
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # (base_depth, num_units, stride) per block; stride applies to the LAST unit.
 RESNET_BLOCK_DEFS = {
@@ -32,6 +41,13 @@ RESNET_BLOCK_DEFS = {
 }
 
 BN_EPSILON = 1e-5
+BN_MOMENTUM = 0.997  # flax's: ra = 0.997 * ra + 0.003 * batch
+
+# False while a remat unit's forward runs again in the backward pass, so
+# that the running statistics move once per step, as the JAX package's
+# functional ``batch_stats`` do.
+_UPDATE_RUNNING_STATS = contextvars.ContextVar("update_running_stats",
+                                               default=True)
 
 
 class Conv2d(nn.Conv2d):
@@ -43,8 +59,17 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm (eps 1e-5): float32 statistics and affine,
-    output in the input's dtype."""
+    """Batch norm (eps 1e-5) with flax's semantics: float32 statistics and
+    affine, output in the input's dtype.
+
+    It normalises with the running statistics, unless ``train_batch_norm``
+    is set and the module is in training. Then it normalises with the
+    batch's biased statistics, computed in float32 as flax's
+    ``use_fast_variance`` does (E[x²] − E[x]², clipped at 0), and moves the
+    running ones by ``ra = 0.997·ra + 0.003·batch`` with that biased
+    variance. ``F.batch_norm(training=True)`` would move ``running_var``
+    by the unbiased variance, so the update is written out here.
+    """
 
     def __init__(self, features):
         super().__init__()
@@ -52,12 +77,55 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.train_batch_norm = False
 
     def forward(self, x):
+        if self.train_batch_norm and self.training:
+            return self._batch_statistics_forward(x)
         return F.batch_norm(
             x, self.running_mean, self.running_var, self.weight, self.bias,
             training=False, eps=BN_EPSILON,
         )
+
+    def _batch_statistics_forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp_min(
+            xf.square().mean(dim=(0, 2, 3)) - mean.square(), 0.0)
+        if _UPDATE_RUNNING_STATS.get():
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1.0 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                       + (1.0 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPSILON) * self.weight
+        y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
+        return (y + self.bias.view(1, -1, 1, 1)).to(x.dtype)
+
+
+def set_train_batch_norm(module, enabled):
+    """Set ``train_batch_norm`` on every :class:`BatchNorm` of ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.train_batch_norm = bool(enabled)
+
+
+def remat_unit(unit, x):
+    """``unit(x)`` whose activations are recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant). The recompute runs with
+    the running-statistics update off, so a batch-statistics
+    :class:`BatchNorm` moves its running statistics once."""
+    calls = []
+
+    def run(inputs):
+        token = _UPDATE_RUNNING_STATS.set(not calls)
+        calls.append(None)
+        try:
+            return unit(inputs)
+        finally:
+            _UPDATE_RUNNING_STATS.reset(token)
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 def conv2d_same(in_channels, features, kernel_size, stride, rate,
@@ -211,7 +279,9 @@ class ResNet(nn.Module):
     ``"block4"``).
 
     Takes and returns NCHW tensors (channels_last on the serving path).
-    ``unit`` overrides the bottleneck class of ``version``.
+    ``unit`` overrides the bottleneck class of ``version``. With ``remat``
+    set, each unit runs through :func:`remat_unit` while the module trains
+    with gradients on.
     """
 
     def __init__(self, depth=101, output_stride=None, endpoint="block3",
@@ -233,6 +303,7 @@ class ResNet(nn.Module):
                 f"Unknown endpoint {endpoint!r}; expected one of {names}"
             )
         self.block_names = names[:names.index(endpoint) + 1]
+        self.remat = False
         depth_in = 64
         for name, units in plan[:len(self.block_names)]:
             block, depth_in = _make_block(depth_in, units, unit)
@@ -244,9 +315,10 @@ class ResNet(nn.Module):
         if self.version == 1:
             x = torch.relu(self.conv1_bn(x))
         x = root_pool(x, self.stride_first)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.block_names:
             for unit in getattr(self, name).values():
-                x = unit(x)
+                x = remat_unit(unit, x) if remat else unit(x)
         return x
 
 

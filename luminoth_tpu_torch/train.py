@@ -14,14 +14,24 @@ run draws what an uninterrupted one would.
 
     python -m luminoth_tpu_torch.train -c config.yml --max-steps N
 
-Not ported (each raises ``NotImplementedError`` when set): more than one
-device (``train.spatial_shards > 1``, a device list, or the
-``LUMI_COORDINATOR``/``LUMI_DISTRIBUTED_AUTO`` multi-process environment),
-``full_trace``/``save_timeline``, ``tf_debug``, ``remat``,
-``base_network.train_batch_norm`` and ``ignore_scope``. The image and
-variable summaries (``image_vis``, ``var_vis``) are skipped with a log
-line. A logged run appends its line to the run journal
-(``utils/experiments.py``, ``runs.json`` in the toolkit's home).
+The JAX package's training knobs: ``model.base_network.train_batch_norm``
+(batch-statistics batch norm with running-statistics updates) and
+``train.remat`` (per-unit recompute of the trunk, ``models/base/
+resnet.py``); ``ignore_scope`` (resume while skipping a scope,
+``utils/checkpoint_io.merge_train_state``); ``tf_debug`` (raise at the
+first step whose module outputs, losses or gradients hold a non-finite
+value, naming it by its flax path); ``full_trace``/``save_timeline`` (a ``torch.profiler``
+trace of the first 5 steps in ``run_dir/profile``); and the summaries:
+``image_vis`` (a monitor forward in eval mode, rendered by
+``utils/image_vis.py``) and ``var_vis`` (parameter statistics under their
+flax paths), on ``display_every_steps``/``display_every_secs``. Summaries
+are TensorBoard event files written by ``formats/tfevents.py``. A logged
+run appends its line to the run journal (``utils/experiments.py``,
+``runs.json`` in the toolkit's home).
+
+Not ported (each raises ``NotImplementedError``): more than one device
+(``train.spatial_shards > 1``, a device list, or the
+``LUMI_COORDINATOR``/``LUMI_DISTRIBUTED_AUTO`` multi-process environment).
 """
 
 import collections
@@ -38,10 +48,11 @@ import torch
 
 from luminoth_tpu_torch.datasets import get_dataset
 from luminoth_tpu_torch.models import get_model
-from luminoth_tpu_torch.models.base.base_network import check_trainable_config
+from luminoth_tpu_torch.formats.tfevents import SummaryWriter
 from luminoth_tpu_torch.utils.checkpoint_io import CheckpointManager
 from luminoth_tpu_torch.utils.config import get_config
 from luminoth_tpu_torch.utils.experiments import save_run
+from luminoth_tpu_torch.utils.hooks import ImageVisHook, VarVisHook
 from luminoth_tpu_torch.utils.predicting import model_dtype, resolve_device
 from luminoth_tpu_torch.utils.training import (
     build_trainable_mask,
@@ -51,11 +62,14 @@ from luminoth_tpu_torch.utils.training import (
 )
 from luminoth_tpu_torch.utils.weights import (
     flatten_variables,
+    flax_paths,
     init_variables,
     load_flax_variables,
 )
 
 logger = logging.getLogger("luminoth_tpu_torch.train")
+
+TRACE_STEPS = 5  # full_trace/save_timeline: the steps traced
 
 _DISTRIBUTED_ENV = ("LUMI_COORDINATOR", "LUMI_DISTRIBUTED_AUTO")
 
@@ -72,16 +86,11 @@ class TrainState:
 
 
 def check_config(config):
-    """Raise ``NotImplementedError`` for training knobs not ported."""
-    train_cfg = config.train
-    if int(train_cfg.get("spatial_shards") or 1) > 1:
+    """Raise ``NotImplementedError`` for more than one device, which is not
+    ported."""
+    if int(config.train.get("spatial_shards") or 1) > 1:
         raise NotImplementedError(
             "train.spatial_shards > 1 (more than one device) is not ported")
-    for knob in ("full_trace", "save_timeline", "tf_debug", "remat",
-                 "ignore_scope"):
-        if train_cfg.get(knob):
-            raise NotImplementedError(f"train.{knob} is not ported")
-    check_trainable_config(config.model.get("base_network") or {})
     for name in _DISTRIBUTED_ENV:
         if os.environ.get(name):
             raise NotImplementedError(
@@ -97,17 +106,69 @@ def step_generator(seed, step, device):
     return generator
 
 
-def make_train_step(model, optimizer, reg_fn=None):
+def _first_non_finite(named, paths):
+    return next((paths.get(name, name) for name, t in named
+                 if not bool(torch.isfinite(t).all())), None)
+
+
+def check_finite(step, losses, grads, model):
+    """``tf_debug``: raise ``FloatingPointError`` when a loss or a gradient
+    of ``step`` holds a non-finite value, naming the non-finite losses and
+    the first non-finite gradient by its flax path. One device-to-host
+    read per step."""
+    tensors = list(losses.values()) + list(grads.values())
+    if bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all()):
+        return
+    bad_losses = [name for name, t in losses.items()
+                  if not bool(torch.isfinite(t).all())]
+    raise FloatingPointError(
+        f"tf_debug: non-finite value at step {step}: losses {bad_losses}, "
+        f"first non-finite gradient "
+        f"{_first_non_finite(grads.items(), flax_paths(model))}")
+
+
+def watch_outputs(model, step_of):
+    """``tf_debug`` in the forward: a hook on every module that holds
+    parameters raises ``FloatingPointError`` at the first module whose
+    output is non-finite (the JAX ``jax_debug_nans`` stops at the first
+    operation that makes a NaN), naming the module by its flax path, the
+    step (``step_of()``) and the first non-finite parameter. Reads one flag
+    per module from the device. Returns the hook handles."""
+    paths = flax_paths(model)
+    module_names = {module: name for name, module in model.named_modules()
+                    if any(True for _ in module.parameters(recurse=False))}
+
+    def hook(module, inputs, output):
+        if not torch.is_tensor(output) or bool(torch.isfinite(output).all()):
+            return
+        name = module_names[module]
+        scope = next((paths[k].rsplit("/", 1)[0] for k in paths
+                      if k.startswith(name + ".")), name)
+        raise FloatingPointError(
+            f"tf_debug: non-finite output of {scope} at step {step_of()}; "
+            f"first non-finite parameter "
+            f"{_first_non_finite(model.named_parameters(), paths)}")
+
+    return [module.register_forward_hook(hook) for module in module_names]
+
+
+def make_train_step(model, optimizer, reg_fn=None, debug_nans=False):
     """The train step over the parameters of ``model`` that require grad.
 
     Returns ``train_step(batch, step, generator, priorities=None) ->
     metrics``: one forward/backward and one optimizer update (in place).
-    ``reg_fn()`` gives the L2 term reported in ``total_loss``.
+    ``reg_fn()`` gives the L2 term reported in ``total_loss``. With
+    ``debug_nans`` (``tf_debug``) a step raises ``FloatingPointError``
+    before its update at the first non-finite module output
+    (:func:`watch_outputs`, whose hooks ``train_step.debug_hooks`` holds),
+    loss or gradient (:func:`check_finite`).
     """
     params = {name: p for name, p in model.named_parameters()
               if p.requires_grad}
+    current = [0]
 
     def train_step(batch, step, generator, priorities=None):
+        current[0] = step + 1
         images = batch["image"]
         if images.dtype == torch.uint8:
             images = images.float()  # the uint8 transfer path
@@ -123,6 +184,8 @@ def make_train_step(model, optimizer, reg_fn=None):
             for (name, p), g in zip(params.items(), grads)
         }
         metrics = {name: value.detach() for name, value in losses.items()}
+        if debug_nans:
+            check_finite(step + 1, metrics, grads, model)
         if reg_fn is not None:
             reg = reg_fn()  # on the parameters before the update
             metrics["reg_loss"] = reg
@@ -131,6 +194,9 @@ def make_train_step(model, optimizer, reg_fn=None):
         metrics["grad_norm"] = optimizer.step(grads, step)
         return metrics
 
+    # The forward hooks of tf_debug; remove them to stop the checks.
+    train_step.debug_hooks = (watch_outputs(model, lambda: current[0])
+                              if debug_nans else [])
     return train_step
 
 
@@ -208,13 +274,34 @@ def load_pretrained_backbone(variables, config):
     return merged
 
 
-def _summary_writer(run_dir):
+def monitor_forward(model, device_batch):
+    """The image-vis hook's forward: the model in eval mode (the JAX
+    ``train=False``: running statistics, detections made), with the ground
+    truth and no gradients; the model goes back to training after."""
+    images = device_batch["image"]
+    if images.dtype == torch.uint8:
+        images = images.float()
+    model.eval()
     try:
-        from tensorboardX import SummaryWriter
-    except ImportError:
-        logger.info("tensorboardX is not installed: no summaries")
-        return None
-    return SummaryWriter(run_dir)
+        with torch.no_grad():
+            return model(images, gt_boxes=device_batch["gt_boxes"],
+                         im_shape=device_batch.get("im_shape"))
+    finally:
+        model.train()
+
+
+def _start_trace(trace_dir, device):
+    """A ``torch.profiler`` trace (CPU, and CUDA on the card) written to
+    ``trace_dir`` as a Chrome trace when it stops."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    trace = torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir))
+    trace.start()
+    logger.info("Profiler trace started → %s", trace_dir)
+    return trace
 
 
 def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
@@ -232,6 +319,11 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
     device = resolve_device(device)
     check_config(config)
     train_cfg = config.train
+    if train_cfg.get("remat"):
+        # The per-unit recompute of the trunk. The JAX package also wraps
+        # the whole loss in jax.checkpoint, which changes no number; the
+        # port does not copy it.
+        config.model.base_network.remat = True
     model = get_model_fn(config.model.type)(config, dtype=model_dtype(config))
     dataset = get_dataset_fn(config.dataset.type)(config)
 
@@ -256,13 +348,21 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
         train_cfg, params, trainable_mask=trainable_mask, weight_decay=decay)
 
     step = 0
+
+    def checkpoint():
+        return {"step": step, "model": model.state_dict(),
+                "optimizer": optimizer.state_dict()}
+
     manager = None
     if not no_log:
         manager = CheckpointManager(
             os.path.join(run_dir, "ckpt"),
             max_to_keep=int(train_cfg.get("checkpoints_max_keep", 1)),
         )
-        restored = manager.restore_latest(map_location=device)
+        restored = manager.restore_latest(
+            map_location=device, template=checkpoint(),
+            paths=flax_paths(model),
+            ignore_scope=train_cfg.get("ignore_scope"))
         if restored is not None:
             model.load_state_dict(restored["model"])
             optimizer.load_state_dict(restored["optimizer"])
@@ -272,15 +372,32 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
     writer = None
     if not no_log:
         os.makedirs(run_dir, exist_ok=True)
-        writer = _summary_writer(run_dir)
-    for knob in ("image_vis", "var_vis"):
-        if writer is not None and train_cfg.get(knob):
-            logger.info("train.%s summaries are not ported: skipped", knob)
+        writer = SummaryWriter(run_dir)
 
     train_step = make_train_step(
         model, optimizer,
         reg_fn=lambda: l2_regularization_loss(params, decay).to(device),
+        debug_nans=bool(train_cfg.get("tf_debug")),
     )
+
+    vis_hook = var_hook = None
+    if writer is not None and train_cfg.get("image_vis"):
+        variances = config.model.get("variances") or (
+            config.model.get("rcnn") or {}).get(
+                "target_normalization_variances")
+        vis_hook = ImageVisHook(
+            writer, config.model.type,
+            image_vis_mode=train_cfg.get("image_vis"),
+            every_secs=train_cfg.get("display_every_secs"),
+            every_steps=train_cfg.get("display_every_steps"),
+            variances=tuple(variances) if variances else None,
+        )
+    if writer is not None and train_cfg.get("var_vis"):
+        var_hook = VarVisHook(
+            writer, mode=train_cfg.get("var_vis"),
+            every_secs=train_cfg.get("display_every_secs") or 300,
+            every_steps=train_cfg.get("display_every_steps"),
+        )
 
     if not no_log:
         try:
@@ -300,9 +417,10 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
         yield first_batch
         yield from batch_iter
 
-    def checkpoint():
-        return {"step": step, "model": model.state_dict(),
-                "optimizer": optimizer.state_dict()}
+    trace = None
+    if train_cfg.get("full_trace") or train_cfg.get("save_timeline"):
+        trace = _start_trace(os.path.join(run_dir, "profile"), device)
+        trace_stop_step = step + TRACE_STEPS
 
     try:
         staged = prefetch_to_device(
@@ -354,11 +472,27 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
                 manager.save(checkpoint(), step)
                 last_save = time.time()
 
+            if vis_hook is not None and vis_hook.should_trigger(step):
+                vis_hook.after_step(step, batch,
+                                    monitor_forward(model, device_batch))
+            if var_hook is not None:
+                var_hook.after_step(step, model)
+
+            if trace is not None and step >= trace_stop_step:
+                trace.stop()
+                logger.info("Profiler trace saved to %s",
+                            os.path.join(run_dir, "profile"))
+                trace = None
+
             if max_steps is not None and step >= max_steps:
                 break
     except KeyboardInterrupt:
         logger.info("Interrupted at step %d", step)
     finally:
+        for hook in train_step.debug_hooks:
+            hook.remove()
+        if trace is not None:
+            trace.stop()
         if manager is not None and step > 0:
             manager.save(checkpoint(), step)
         if writer is not None:

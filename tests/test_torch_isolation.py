@@ -23,9 +23,19 @@ back afterwards. Every port test module that reaches a JAX predictor,
 evaluator or the JAX ``predict`` command imports :func:`jax_cache_isolation`,
 a module-scoped autouse fixture, so the module's JAX references compute
 through plain ``jax.jit``.
+
+Both fixtures also give the module's memory back when the module ends
+(:func:`release_memory`): an xdist worker runs many modules in one
+process, and the heap their JAX references and models freed stayed
+resident, so the six workers of a full ``-n 6`` run held ~36 GB between
+them at its end (8 GB the largest). A machine that ends large processes
+under memory pressure then interrupts the last tests running on several
+workers at once.
 """
 
 import contextlib
+import ctypes
+import gc
 import os
 import subprocess
 import sys
@@ -39,10 +49,23 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)
 
 
+def release_memory():
+    """Drop JAX's compiled executables and tracing caches, collect, and
+    return the freed heap to the system (glibc's ``malloc_trim``: freed
+    chunks between live ones otherwise stay in the process's RSS)."""
+    jax.clear_caches()
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):  # not glibc: nothing to trim
+        pass
+
+
 @contextlib.contextmanager
 def isolated_jax_caches():
     """Both JAX caches off, and the compile-time threshold at 1e9, for the
-    span of the context; the previous threshold is restored after."""
+    span of the context; the previous threshold is restored after, and the
+    span's memory released (:func:`release_memory`)."""
     previous = getattr(jax.config, THRESHOLD)
     with pytest.MonkeyPatch.context() as patch:
         patch.setenv("LUMI_NO_AOT_CACHE", "1")
@@ -52,6 +75,7 @@ def isolated_jax_caches():
             yield
         finally:
             jax.config.update(THRESHOLD, previous)
+            release_memory()
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -141,3 +165,81 @@ def lumi_home_isolation(tmp_path_factory):
     with pytest.MonkeyPatch.context() as patch:
         patch.setenv("LUMI_HOME", str(home))
         yield str(home)
+    release_memory()
+
+
+RELEASE_PROBE = textwrap.dedent("""
+    import json, sys
+    sys.path[:0] = [{repo!r}, {tests!r}]
+    import jax, jax.numpy as jnp, numpy as np
+
+    def rss_mb():
+        with open("/proc/self/status") as f:
+            return next(int(line.split()[1]) / 1e3 for line in f
+                        if line.startswith("VmRSS"))
+
+    from test_torch_isolation import isolated_jax_caches
+    base = rss_mb()
+    with isolated_jax_caches():
+        double = jax.jit(lambda x: x * 2)
+        double(jnp.ones(3)).block_until_ready()
+        # 1 GB in 256 KB blocks with a small live array after each, as a
+        # module's freed tensors sit between the arrays that outlive it.
+        blocks, pins = [], []
+        for _ in range(4000):
+            blocks.append(np.ones(256 * 1024 // 8))
+            pins.append(np.ones(1000))
+        del blocks
+        cached = double._cache_size()
+        held = rss_mb()
+    print(json.dumps({{"base": base, "held": held, "after": rss_mb(),
+                      "cached": cached, "left": double._cache_size()}}))
+""").format(repo=REPO, tests=TESTS)
+
+
+def test_the_isolation_gives_the_memory_back(tmp_path):
+    """After the context (and so after each module that uses a fixture of
+    this file) the freed heap is no longer resident and JAX holds no
+    compiled executable of it."""
+    import json
+
+    out = subprocess.run([sys.executable, "-c", RELEASE_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["held"] - report["base"] > 900
+    assert report["after"] - report["base"] < 200
+    assert report["cached"] == 1 and report["left"] == 0
+
+
+# What a port test module calls, and the isolation it must import for it.
+ISOLATION_NEEDS = {
+    "lumi_home_isolation": (r"\btrainer\.run\(", r"\bjax_train\.run\("),
+    "jax_cache_isolation": (
+        r"\bjax_train\.run\(", r"\bjax_eval\.evaluate_once\(",
+        r"\bJax\w*PredictorNetwork\(", r"\bjax_predict\b",
+    ),
+}
+
+
+def test_port_test_modules_import_the_isolation_they_need():
+    """Every ``tests/test_torch_*.py`` that runs the port's or the JAX
+    package's ``train.run`` imports ``lumi_home_isolation``, and every one
+    that runs the JAX ``train.run``, evaluator, predictor or ``predict``
+    command imports ``jax_cache_isolation``."""
+    import glob
+    import re
+
+    checked = set()
+    for path in sorted(glob.glob(os.path.join(TESTS, "test_torch_*.py"))):
+        with open(path) as f:
+            source = f.read()
+        imports = re.findall(
+            r"from test_torch_isolation import (\([^)]*\)|[^\n]*)", source)
+        imported = set(re.findall(r"\w+_isolation", " ".join(imports)))
+        for fixture, calls in ISOLATION_NEEDS.items():
+            if any(re.search(call, source) for call in calls):
+                checked.add(os.path.basename(path))
+                assert fixture in imported, (
+                    f"{os.path.basename(path)} needs {fixture}")
+    assert {"test_torch_train.py", "test_torch_train_knobs.py"} <= checked

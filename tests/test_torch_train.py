@@ -92,6 +92,11 @@ def config():
 
 @pytest.fixture(scope="module")
 def batch():
+    return train_batch()
+
+
+def train_batch():
+    """Two 96 x 128 images with 3 and 2 ground-truth boxes."""
     rng = np.random.RandomState(0)
     images = (rng.rand(2, 96, 128, 3) * 255).astype(np.float32)
     gt = np.zeros((2, 4, 5), np.float32)
@@ -104,9 +109,15 @@ def batch():
 
 @pytest.fixture(scope="module")
 def variables(config, batch):
-    """JAX random init, with the heads rescaled to unsaturated logits."""
-    init = JaxFasterRCNN(config).init(jax.random.PRNGKey(0),
-                                      jnp.zeros((1, 96, 128, 3)))
+    return rescaled_variables(config, batch)
+
+
+def rescaled_variables(config, batch, init=None):
+    """JAX random init (or ``init``, nested flax variables), with the heads
+    rescaled to unsaturated logits."""
+    if init is None:
+        init = JaxFasterRCNN(config).init(jax.random.PRNGKey(0),
+                                          jnp.zeros((1, 96, 128, 3)))
     variables = jax.tree_util.tree_map(np.array, init)
     params = variables["params"]
 
@@ -281,9 +292,24 @@ class TestModel:
 
 
 def _random_variables(config):
+    return _init(config, seed=1)
+
+
+def _init(config, seed=None):
+    """The port's random init of ``config`` (``train.seed`` by default)."""
     from luminoth_tpu_torch.utils.weights import init_variables
 
-    return init_variables(config, seed=1)
+    if seed is None:
+        seed = int(config.train.get("seed") or 0)
+    return init_variables(config, seed=seed)
+
+
+def drop_checkpoints(root):
+    """Delete the checkpoint files under ``root`` (hundreds of MB each at
+    these widths), so that a test run's temporary directories stay
+    small."""
+    for path in list(root.rglob("ckpt_step_*")):
+        path.unlink()
 
 
 def write_records(tmp_path):
@@ -394,17 +420,80 @@ class TestRun:
         {"spatial_shards": 2}, {"full_trace": True}, {"save_timeline": True},
         {"tf_debug": True}, {"remat": True}, {"ignore_scope": "rpn"},
     ])
-    def test_unported_knobs_raise(self, tmp_path, knob):
-        cfg = self._config(tmp_path, str(tmp_path), **knob)
-        with pytest.raises(NotImplementedError):
-            trainer.run(cfg, max_steps=1, device="cpu")
+    def test_unported_knobs_raise(self, tmp_path, knob, monkeypatch):
+        """More than one device still raises; each other knob of the JAX
+        package runs one CPU step and takes effect."""
+        data_dir = str(tmp_path)
+        if "spatial_shards" not in knob:
+            data_dir = write_records(tmp_path)
+        cfg = self._config(tmp_path, data_dir, **knob)
+        run_dir = tmp_path / "jobs" / "r"
+        if "spatial_shards" in knob:
+            with pytest.raises(NotImplementedError):
+                trainer.run(cfg, max_steps=1, device="cpu")
+        elif "tf_debug" in knob:
+            poisoned = np.zeros((7, 7, 3, 64), np.float32)
+            poisoned[3, 3, 0, 0] = np.nan
+            np.savez(tmp_path / "w.npz", **{
+                "params/base_network/resnet_v1_50/conv1/kernel": poisoned})
+            cfg.model.base_network.weights = str(tmp_path / "w.npz")
+            with pytest.raises(FloatingPointError, match="at step 1;"):
+                trainer.run(cfg, max_steps=1, device="cpu")
+        elif "ignore_scope" in knob:
+            from luminoth_tpu_torch.utils.checkpoint_io import (
+                CheckpointManager,
+            )
+
+            plain = self._config(tmp_path, data_dir)
+            saved = trainer.run(plain, max_steps=1, device="cpu")
+            saved = {k: v.clone() for k, v in
+                     saved.model.state_dict().items()}
+            fresh = torch_state_from_flax(_init(cfg))
+            merged = []
+            restore = CheckpointManager.restore_latest
+
+            def recording(manager, *args, **kwargs):
+                out = restore(manager, *args, **kwargs)
+                merged.append({"step": out["step"], "model": {
+                    k: v.clone() for k, v in out["model"].items()}})
+                return out
+
+            monkeypatch.setattr(CheckpointManager, "restore_latest",
+                                recording)
+            state = trainer.run(cfg, max_steps=2, device="cpu")
+            assert state.step == 2 and merged[0]["step"] == 1
+            model = merged[0]["model"]
+            assert any(k.startswith("rpn.") for k in model)
+            for name, value in model.items():
+                want = fresh[name] if name.startswith("rpn.") else (
+                    saved[name])
+                assert torch.equal(value, want), name
+        else:
+            state = trainer.run(cfg, max_steps=1, device="cpu")
+            assert state.step == 1
+            assert np.isfinite(state.history[0]["total_loss"])
+            if "remat" in knob:
+                assert state.model.base_network.resnet_v1_50.remat
+            else:
+                traces = list((run_dir / "profile").glob("*.pt.trace.json"))
+                assert len(traces) == 1
+        drop_checkpoints(tmp_path)
 
     @pytest.mark.parametrize("flag", ["train_batch_norm", "remat"])
     def test_unported_base_network_flags_raise(self, tmp_path, flag):
-        cfg = self._config(tmp_path, str(tmp_path))
+        """Each base-network flag trains one CPU step: batch-statistics
+        batch norm moves the running statistics, remat is set on the
+        trunk."""
+        cfg = self._config(tmp_path, write_records(tmp_path))
         cfg.model.base_network[flag] = True
-        with pytest.raises(NotImplementedError):
-            trainer.run(cfg, max_steps=1, device="cpu")
+        state = trainer.run(cfg, max_steps=1, device="cpu")
+        assert state.step == 1
+        assert np.isfinite(state.history[0]["total_loss"])
+        trunk = state.model.base_network.resnet_v1_50
+        assert trunk.remat == (flag == "remat")
+        mean = trunk.block1.unit_1.conv1_bn.running_mean
+        assert bool(mean.any()) == (flag == "train_batch_norm")
+        drop_checkpoints(tmp_path)
 
     def test_more_than_one_device_raises(self, tmp_path):
         cfg = self._config(tmp_path, str(tmp_path))
