@@ -54,7 +54,16 @@ transform`` of raw annotations in each of its seven formats, read back
 exactly, and ``dataset merge``; a Pascal VOC tree at full width (375x500,
 20 classes) transformed for train and val, 3 ``train.run`` steps on its
 records and ``evaluate_once`` over its val split, with the run journal
-checked (``[dataset]``).
+checked (``[dataset]``). TF checkpoints without TensorFlow: a seeded slim
+ResNet-101 written as a V2 bundle, ``convert-backbone --source slim`` and
+3 ``train.run`` steps from it (``[slim-train]``); a seeded reference
+Faster R-CNN bundle (with optimizer slots) through ``convert-detector``
+and one ``Detector`` forward on it (``[convert-detector]``). Data
+parallelism: two ranks over gloo sharing ``cuda:0``, each a process
+joined through ``LUMI_COORDINATOR``, train [train]'s workload on a global
+batch of 8 (``[ddp]``, then one step in a one-rank NCCL group); a 2-rank
+step against the 1-process step, small and f32 (``[ddp-parity]``); and
+``evaluate_once`` over ``[cuda:0, cuda:0]`` (``[dp-eval]``).
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, ...}``.
@@ -224,6 +233,26 @@ KNOBS_STATS_RTOL, KNOBS_STATS_ATOL = 1e-3, 1e-6
 KNOBS_PARITY_CANVAS = (128, 160)
 KNOBS_HEAD_RTOL, KNOBS_HEAD_ATOL, KNOBS_ALL_RTOL = 1e-2, 1e-6, 0.2
 FILES_PER_CLASS_IMAGES = 8  # [eval-files]: one batch of [eval]'s images
+SLIM_STEPS = 3  # [slim-train]
+DDP_STEPS = 4  # [ddp]: global batch BATCH, BATCH // 2 rows per rank
+DDP_RANK_TIMEOUT_S = 600
+# [ddp-parity]: the 2-rank step against the 1-process step on the card,
+# each group held on its own, relative: the losses, each head tensor's
+# move, all the parameters' moves together and, under batch statistics,
+# all the running statistics' moves together. Fixed statistics: float32
+# rounding of a batch of 1 against 2 in cuDNN, summed. Batch statistics:
+# batch norm amplifies that rounding (tests/test_torch_train_knobs.py).
+# Each limit lies between the sound step's reading and what the planted
+# faults of DDP_PARITY_FAULTS read (the phase runs them and fails unless
+# the check catches each): "local_counts", the naive DDP loss (each rank's
+# own masked means, the ranks' gradients averaged); "local_statistics",
+# batch norm over each rank's rows alone. Readings in PERF.md.
+DDP_PARITY_TOL = {
+    False: {"loss": 1e-4, "head": 1e-3, "params": 1e-3},
+    True: {"loss": 2e-3, "head": 5e-2, "params": 5e-2, "stats": 3e-5},
+}
+DDP_PARITY_FAULTS = {False: ("local_counts",),
+                     True: ("local_counts", "local_statistics")}
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(HERE, "build", "chip_smoke")
 
@@ -3915,6 +3944,783 @@ def unit_scale(grad):
     return 2.0 ** -math.floor(math.log2(g_max))
 
 
+# ------------------------------------------------ TF checkpoints, data parallel
+
+
+def slim_resnet_v1(depth, rng, prefix=""):
+    """Seeded slim ``resnet_v1_<depth>`` variables under their slim names
+    (after ``prefix``), as ``{name: float32 array}``, with the extras a
+    slim tarball holds (logits, global step); and for each converted
+    variable the ``.npz`` keys it must land in (block4 twice: trunk and
+    ROI tail)."""
+    import numpy as np
+    from luminoth_tpu_torch.models.base.resnet import RESNET_BLOCK_DEFS
+
+    arch = f"resnet_v1_{depth}"
+    values, dest = {}, {}
+
+    def conv(name, shape, units):  # scaled to the fan-in: sane features
+        scale = np.float32(0.5 / math.sqrt(shape[0] * shape[1] * shape[2]))
+        values[prefix + name] = rng.standard_normal(shape, np.float32) * scale
+        dest[prefix + name] = [f"params/{u}/kernel" for u in units]
+
+    def bn(name, units, c):
+        for leaf, collection, flax_leaf, value in (
+                ("gamma", "params", "scale",
+                 1 + 0.2 * rng.standard_normal(c, np.float32)),
+                ("beta", "params", "bias",
+                 0.1 * rng.standard_normal(c, np.float32)),
+                ("moving_mean", "batch_stats", "mean",
+                 0.1 * rng.standard_normal(c, np.float32)),
+                ("moving_variance", "batch_stats", "var",
+                 0.75 + 0.5 * rng.random(c, np.float32))):
+            values[f"{prefix}{name}/BatchNorm/{leaf}"] = value.astype(
+                np.float32)
+            dest[f"{prefix}{name}/BatchNorm/{leaf}"] = [
+                f"{collection}/{u}/BatchNorm/{flax_leaf}" for u in units]
+
+    root = f"base_network/{arch}"
+    conv(f"{arch}/conv1/weights", (7, 7, 3, 64), [f"{root}/conv1"])
+    bn(f"{arch}/conv1", [f"{root}/conv1_bn"], 64)
+    in_c = 64
+    for b, (base, units, _) in enumerate(RESNET_BLOCK_DEFS[depth], 1):
+        out_c = base * 4
+        for u in range(1, units + 1):
+            scopes = [f"{root}/block{b}/unit_{u}"] + (
+                [f"base_network_tail/{arch}/block4/unit_{u}"] if b == 4
+                else [])
+            slim = f"{arch}/block{b}/unit_{u}/bottleneck_v1"
+            if in_c != out_c:
+                conv(f"{slim}/shortcut/weights", (1, 1, in_c, out_c),
+                     [f"{s}/shortcut" for s in scopes])
+                bn(f"{slim}/shortcut", [f"{s}/shortcut_bn" for s in scopes],
+                   out_c)
+            for k, shape in ((1, (1, 1, in_c, base)), (2, (3, 3, base, base)),
+                             (3, (1, 1, base, out_c))):
+                conv(f"{slim}/conv{k}/weights", shape,
+                     [f"{s}/conv{k}" for s in scopes])
+                bn(f"{slim}/conv{k}", [f"{s}/conv{k}_bn" for s in scopes],
+                   shape[-1])
+            in_c = out_c
+    values[f"{prefix}{arch}/logits/weights"] = np.zeros(
+        (1, 1, in_c, 1000), np.float32)
+    values[f"{prefix}{arch}/logits/biases"] = np.zeros(1000, np.float32)
+    return values, dest
+
+
+def slim_train_phase(device, card):
+    """[slim-train]: a seeded full-width slim ``resnet_v1_101`` checkpoint
+    (written as a TF V2 bundle, slim names, logits and global step
+    beside), ``checkpoint convert-backbone --source slim`` to a ``.npz``
+    held against the seeded values key for key, then 3 ``train.run``
+    steps at [train]'s workload from it (R101, 80 classes, bf16, b8,
+    608x800). The converted values stay where they do not train; K1, K2
+    and K3 once per step, each held on the steps' own tensors."""
+    import numpy as np
+    import torch
+    from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.ops import nms
+
+    folder = os.path.join(BUILD, "slim")
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(SEED + 41)
+    values, dest = slim_resnet_v1(101, rng)
+    values["global_step"] = np.asarray(300000, np.int64)
+    prefix = write_tf_bundle(os.path.join(folder, "resnet_v1_101.ckpt"),
+                             values)
+    npz = os.path.join(folder, "resnet_v1_101.npz")
+    t0 = time.perf_counter()
+    result = zoo_cli(["convert-backbone", prefix, npz, "--architecture",
+                      "resnet_v1_101", "--source", "slim"])
+    convert_s = time.perf_counter() - t0
+    with np.load(npz) as converted:
+        got = {key: converted[key] for key in converted.files}
+    want = {key: values[name] for name, keys in dest.items() for key in keys}
+    layout = str(got.pop("__meta__/layout", ""))
+    if layout != "slim" or sorted(got) != sorted(want) or not all(
+            np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError(
+            f"[slim-train] the .npz ({len(got)} arrays, layout {layout!r}) "
+            f"is not the seeded checkpoint's {len(want)} values")
+    if result.output.strip() != f"Converted {len(want) + 1} arrays to {npz}.":
+        raise AssertionError(f"[slim-train] convert-backbone said "
+                             f"{result.output!r}")
+    del got
+
+    config, _ = full_train_config("slim", model={"base_network": {
+        "architecture": "resnet_v1_101", "weights": npz}})
+    k1s, k2s, k3s = [], [], []
+    nms.nms_alive_cuda.launches = 0
+    t0 = time.perf_counter()
+    with capturing_k1(k1s) as k1, capturing_k2(k2s) as k2, \
+            capturing_k3(k3s) as k3:
+        state = trainer.run(config, max_steps=SLIM_STEPS, device=device)
+    wall_s = time.perf_counter() - t0
+    launches = {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches}
+    losses = [h["total_loss"] for h in state.history]
+    if state.step != SLIM_STEPS or launches != {
+            k: SLIM_STEPS for k in launches} or not all(
+            map(math.isfinite, losses)):
+        raise AssertionError(f"[slim-train] step {state.step}, launches "
+                             f"{launches}, losses {losses}")
+    # conv1 is frozen (fine_tune_from) and the statistics do not train.
+    trunk = state.model.base_network.resnet_v1_101
+    kept = (torch.equal(trunk.conv1.weight.detach().cpu(), torch.from_numpy(
+        values["resnet_v1_101/conv1/weights"]).permute(3, 2, 0, 1))
+        and torch.equal(trunk.block3.unit_5.conv2_bn.running_var.cpu(),
+                        torch.from_numpy(values[
+                            "resnet_v1_101/block3/unit_5/bottleneck_v1/"
+                            "conv2/BatchNorm/moving_variance"])))
+    if not kept:
+        raise AssertionError("[slim-train] a converted value that does not "
+                             "train changed")
+    hold_k1(k1s, "slim-train", timed=False)
+    k2_errors = []
+    hold_k2(k2s, "slim-train", errors=k2_errors, timed=False)
+    fm, boxes, grad, s = k3s[0]
+    scale = unit_scale(grad)
+    k3 = hold_k3(fm, boxes, grad * scale, s)
+    steady = [h["device_ms"] for h in state.history[1:]]
+    phase("slim-train", model="resnet_v1_101", source="slim V2 bundle",
+          variables=len(values), npz_arrays=len(want) + 1,
+          npz_equal_to_seeded=True, convert_s=f"{convert_s:.1f}",
+          classes=80, dtype="bfloat16", canvas=f"{CANVAS[0]}x{CANVAS[1]}",
+          batch=BATCH, steps=state.step, converted_value_kept=True,
+          k1_launches=launches["k1"], k2_launches=launches["k2"],
+          k3_launches=launches["k3"], k1_equal=True,
+          k2_max_abs_err=max(k2_errors), k3_max_abs_err=k3["max_abs_err"],
+          k3_identity_rel_err=k3["identity_rel_err"],
+          losses="/".join(f"{v:.4f}" for v in losses),
+          steady_step_ms=f"{sum(steady) / len(steady):.2f}",
+          wall_s=f"{wall_s:.1f}", card=f"'{card}'")
+    del state, k1s, k2s, k3s, fm, boxes, grad
+    torch.cuda.empty_cache()
+    return launches, k3["max_abs_err"]
+
+
+def convert_detector_phase(device, card):
+    """[convert-detector]: a seeded reference-layout Faster R-CNN
+    (R101, 80 classes) as a TF V2 bundle, with a ``Momentum`` slot beside
+    every weight and the global step, as a reference training checkpoint
+    has; ``checkpoint convert-detector`` into a job directory; then one b8
+    608x800 bf16 forward through ``Detector`` on it, its weights checked,
+    K1 and K2 held on the forward's tensors."""
+    import numpy as np
+    import torch
+    import yaml
+    from luminoth_tpu_torch import Detector
+    from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
+    from luminoth_tpu_torch.ops import roi_align
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.weights import flax_variables_from_torch
+
+    folder = os.path.join(BUILD, "reference")
+    jobs = os.path.join(folder, "converted")
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, "config.yml")
+    with open(serve_config("resnet_v1_101", 80, "bfloat16", CANVAS)) as f:
+        config = yaml.safe_load(f)
+    config["train"] = {"job_dir": jobs}
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+
+    rng = np.random.default_rng(SEED + 43)
+    values, _ = slim_resnet_v1(101, rng, "fasterrcnn/truncated_base_network/")
+    values = {k: v for k, v in values.items() if "/logits/" not in k}
+    shapes = flax_variables_from_torch(FasterRCNN(get_config([path])))
+    for key, value in shapes.items():
+        if key.startswith(("params/rpn/", "params/rcnn/")):
+            scope, leaf = key[len("params/"):].rsplit("/", 1)
+            values[f"fasterrcnn/{scope}/{'w' if leaf == 'kernel' else 'b'}"] \
+                = rng.standard_normal(value.shape, np.float32) * np.float32(
+                    0.01)
+    weights = len(values)
+    for name in list(values):
+        values[f"{name}/Momentum"] = np.zeros_like(values[name])
+    values["global_step"] = np.asarray(100000, np.int64)
+    prefix = write_tf_bundle(os.path.join(folder, "model.ckpt-100000"),
+                             values)
+    t0 = time.perf_counter()
+    result = zoo_cli(["convert-detector", prefix, jobs, "-c", path])
+    convert_s = time.perf_counter() - t0
+    total = len([k for k in shapes if k.startswith(
+        ("params/", "batch_stats/"))])
+    if not result.output.startswith(
+            f"Converted {total}/{total} arrays into {jobs}/ckpt."):
+        raise AssertionError(f"[convert-detector] {result.output!r}")
+
+    detector = Detector(config=path, device=device, prob=0.0)
+    model = detector._network._model
+    cls_conv = values["fasterrcnn/rpn/cls_conv/w"]
+    if not (torch.equal(model.rpn.cls_conv.weight.detach().cpu(),
+                        torch.from_numpy(cls_conv).permute(3, 2, 0, 1))
+            and torch.equal(
+                model.rcnn.fc_bbox.weight.detach().cpu(),
+                torch.from_numpy(values["fasterrcnn/rcnn/fc_bbox/w"]).T)):
+        raise AssertionError("[convert-detector] the served weights are not "
+                             "the checkpoint's")
+    images = [np.random.default_rng(SEED + 44).integers(
+        0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(BATCH)]
+    k1s, k2s = [], []
+    roi_align.roi_crop_pool_cuda.launches = 0
+    with capturing_k1(k1s) as k1, capturing_k2(k2s) as k2:
+        t0 = time.perf_counter()
+        results = detector.predict(images)
+        predict_ms = 1000 * (time.perf_counter() - t0)
+    launches = {"k1": k1.launches, "k2": k2.launches}
+    check_forwards("convert-detector", launches, 1)
+    if len(results) != BATCH or not all(0 < len(r) <= 300 for r in results):
+        raise AssertionError("[convert-detector] detections per image "
+                             f"{[len(r) for r in results]}")
+    for objects in results:
+        for o in objects:
+            if not (np.isfinite(o["bbox"]).all() and 0 <= o["label"] < 80):
+                raise AssertionError(f"malformed detection {o}")
+    hold_k1(k1s, "convert-detector", timed=False)
+    k2_errors = []
+    hold_k2(k2s, "convert-detector", errors=k2_errors, timed=False)
+    phase("convert-detector", model="resnet_v1_101", classes=80,
+          source="reference V2 bundle", weights=weights,
+          momentum_slots=weights, converted=f"{total}/{total}",
+          convert_s=f"{convert_s:.1f}", dtype="bfloat16",
+          canvas=f"{CANVAS[0]}x{CANVAS[1]}", batch=BATCH,
+          served_weights_equal=True, k1_launches=launches["k1"],
+          k2_launches=launches["k2"], k1_equal=True,
+          k2_max_abs_err=max(k2_errors),
+          detections=sum(len(r) for r in results),
+          request_ms=f"{predict_ms:.1f}", card=f"'{card}'")
+    del detector, model, k1s, k2s
+    torch.cuda.empty_cache()
+    return launches, max(k2_errors)
+
+
+def ddp_rank_main(rank, port, out):
+    """One rank of [ddp], started by :func:`ddp_phase` as ``chip_smoke.py
+    --ddp-rank R --port P --out F``: ``train.run`` of [ddp]'s config on
+    ``cuda:0`` in the group that ``LUMI_COORDINATOR`` names (gloo: two
+    ranks share the card); K1, K2 and K3 counted from 0 and held on the
+    rank's own tensors; the rank's record to ``out`` as JSON."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.ops import nms, roi_align
+    from luminoth_tpu_torch.parallel.distributed import worker_env
+    from luminoth_tpu_torch.utils.config import get_config
+
+    os.environ["LUMI_HOME"] = os.path.join(BUILD, "home")
+    os.environ.update(worker_env("127.0.0.1", port, 2, rank))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    nms.load_library()
+    roi_align.load_library()
+    config = get_config([os.path.join(BUILD, "ddp.yml")])
+    k1s, k2s, k3s = [], [], []
+    with capturing_k1(k1s) as k1, capturing_k2(k2s) as k2, \
+            capturing_k3(k3s) as k3:
+        state = trainer.run(config, max_steps=DDP_STEPS, device=device,
+                            backend="gloo")
+    launches = {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches}
+    hold_k1(k1s, "ddp", timed=False)
+    k2_errors = []
+    hold_k2(k2s, "ddp", errors=k2_errors, timed=False)
+    fm, boxes, grad, s = k3s[0]
+    k3 = hold_k3(fm, boxes, grad * unit_scale(grad), s)
+    with open(out, "w") as f:
+        json.dump({"rank": rank, "step": state.step,
+                   "history": state.history, "launches": launches,
+                   "rows": int(fm.shape[0]),
+                   "k2_max_abs_err": max(k2_errors),
+                   "k3_max_abs_err": k3["max_abs_err"]}, f)
+    return 0
+
+
+def ddp_phase(device, card, train_numbers):
+    """[ddp]: two ranks over gloo on ``cuda:0``, each a process of its own
+    as a launcher starts them (``LUMI_COORDINATOR`` and friends), train
+    [train]'s workload (R101 v1, 80 classes, bf16, 608x800) on a global
+    batch of 8, 4 rows per rank, for 4 steps through ``train.run``. Both
+    ranks log the same losses; only the chief writes the checkpoint, the
+    summaries and the journal line. Then one step in a one-rank NCCL
+    group, with an NCCL all-reduce."""
+    import torch
+    import torch.distributed as dist
+    from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.ops import nms, roi_align
+    from luminoth_tpu_torch.parallel.distributed import (
+        free_port,
+        initialize_from_env,
+        worker_env,
+    )
+
+    config, jobs = full_train_config("ddp")
+    journal = os.path.join(BUILD, "home", "runs.json")
+
+    def journal_lines():
+        if not os.path.exists(journal):
+            return 0
+        with open(journal) as f:
+            return len(f.read().splitlines())
+
+    before = journal_lines()
+    port = free_port()
+    outs = [os.path.join(BUILD, f"ddp_rank{r}.json") for r in range(2)]
+    logs = [open(os.path.join(BUILD, f"ddp_rank{r}.log"), "w")
+            for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
+         "--port", str(port), "--out", outs[r]],
+        cwd=HERE, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        codes = [p.wait(timeout=DDP_RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    wall_s = time.perf_counter() - t0
+    if codes != [0, 0]:
+        tails = []
+        for r in range(2):
+            with open(os.path.join(BUILD, f"ddp_rank{r}.log")) as f:
+                tails.append(f.read()[-3000:])
+        raise AssertionError(f"[ddp] ranks exited {codes}:\n" +
+                             "\n".join(tails))
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    keys = [k for k in ranks[0]["history"][0] if k.endswith("loss")
+            or k == "grad_norm"]
+    logged = [[[h[k] for k in keys] for h in r["history"]] for r in ranks]
+    if logged[0] != logged[1] or any(r["step"] != DDP_STEPS for r in ranks):
+        raise AssertionError(f"[ddp] the ranks logged {logged}")
+    if any(r["launches"] != {k: DDP_STEPS for k in ("k1", "k2", "k3")}
+           or r["rows"] != BATCH // 2 for r in ranks):
+        raise AssertionError(f"[ddp] launches "
+                             f"{[r['launches'] for r in ranks]}, rows "
+                             f"{[r['rows'] for r in ranks]}")
+    run_dir = os.path.join(jobs, "ddp")
+    ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+    events = [n for n in os.listdir(run_dir) if n.startswith("events.")]
+    journal_added = journal_lines() - before
+    if ckpts != [f"ckpt_step_{DDP_STEPS}.pt"] or len(events) != 1 or (
+            journal_added != 1):
+        raise AssertionError(f"[ddp] checkpoints {ckpts}, event files "
+                             f"{events}, journal lines {journal_added}")
+    steady = [[h["device_ms"] for h in r["history"][1:]] for r in ranks]
+    steady_ms = [sum(s) / len(s) for s in steady]
+
+    # One step in a one-rank group of the default backend (NCCL on CUDA).
+    saved = {k: os.environ.get(k) for k in worker_env("", 0, 1, 0)}
+    os.environ.update(worker_env("127.0.0.1", free_port(), 1, 0))
+    nccl_config, _ = full_train_config("ddp_nccl", train={"no_log": True})
+    kernels = {"k1": nms.nms_alive_cuda, "k2": roi_align.roi_crop_pool_cuda,
+               "k3": roi_align.roi_crop_pool_backward_cuda}
+    try:
+        if not initialize_from_env(device=device):
+            raise AssertionError("[ddp] LUMI_COORDINATOR formed no group")
+        backend = dist.get_backend()
+        for kernel in kernels.values():
+            kernel.launches = 0
+        state = trainer.run(nccl_config, max_steps=1, device=device)
+        nccl = {k: f.launches for k, f in kernels.items()}
+        one = torch.ones(1, device=device)
+        dist.all_reduce(one)
+        if backend != "nccl" or float(one) != 1.0 or state.step != 1 or (
+                nccl != {"k1": 1, "k2": 1, "k3": 1}):
+            raise AssertionError(f"[ddp] NCCL group: backend {backend}, "
+                                 f"all-reduce {float(one)}, launches {nccl}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    launches = {k: sum(r["launches"][k] for r in ranks) + nccl[k]
+                for k in nccl}
+    phase("ddp", model="resnet_v1_101", classes=80, dtype="bfloat16",
+          canvas=f"{CANVAS[0]}x{CANVAS[1]}", ranks=2, backend="gloo",
+          device="cuda:0", global_batch=BATCH, rows_per_rank=BATCH // 2,
+          steps=DDP_STEPS, ranks_logged_equal=True,
+          losses="/".join(f"{h['total_loss']:.4f}"
+                          for h in ranks[0]["history"]),
+          k1_launches_per_rank=DDP_STEPS, k2_launches_per_rank=DDP_STEPS,
+          k3_launches_per_rank=DDP_STEPS,
+          k2_max_abs_err=max(r["k2_max_abs_err"] for r in ranks),
+          k3_max_abs_err=max(r["k3_max_abs_err"] for r in ranks),
+          steady_step_ms="/".join(f"{ms:.2f}" for ms in steady_ms),
+          train_steady_step_ms=f"{train_numbers[0]:.2f}",
+          chief_only_writes=True, wall_s=f"{wall_s:.1f}",
+          nccl_world_1_backend=backend, nccl_step_launches=nccl["k3"],
+          card=f"'{card}'")
+    return launches, max(r["k3_max_abs_err"] for r in ranks)
+
+
+def parity_steps(config, variables, batch, device):
+    """One train step of ``config`` from ``variables`` on ``batch`` (its
+    rows when this process is a rank of a group): the metrics, the moves
+    of the parameters and of the running statistics, and the masked
+    means' ``(local, global)`` denominators; tensors on the CPU."""
+    import torch
+    import torch.distributed as dist
+    from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.models.base.resnet import set_train_batch_norm
+    from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
+    from luminoth_tpu_torch.parallel import mesh
+    from luminoth_tpu_torch.utils import training
+    from luminoth_tpu_torch.utils.weights import load_flax_variables
+
+    rank, world = mesh.world()
+    model = load_flax_variables(FasterRCNN(config), variables).to(device)
+    set_train_batch_norm(model, config.model.base_network.train_batch_norm)
+    mask = training.build_trainable_mask(model, config.model)
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+    params = dict(model.named_parameters())
+    decay = training.build_weight_decay_coefficients(model, config.model)
+    optimizer, _ = training.get_optimizer(config.train, params, mask, decay)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    counts = []
+    global_count = mesh.global_count
+
+    def recording(count):
+        total = global_count(count)
+        counts.append((float(count), float(total)))
+        return total
+
+    mesh.global_count = recording
+    try:
+        step = trainer.make_train_step(
+            model, optimizer,
+            group=dist.group.WORLD if world > 1 else None,
+            reg_fn=lambda: training.l2_regularization_loss(params, decay))
+        rows = mesh.shard_batch(batch, rank, world)
+        metrics = step({k: torch.from_numpy(v).to(device)
+                        for k, v in rows.items()}, 0,
+                       trainer.step_generator(SEED, 0, device))
+    finally:
+        mesh.global_count = global_count
+    moves = {"params": {}, "stats": {}}
+    for k, v in model.state_dict().items():
+        if not torch.equal(v, before[k]):
+            moves["params" if k in params else "stats"][k] = (
+                v.detach() - before[k]).cpu()
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "moves": moves, "counts": counts}
+
+
+@contextlib.contextmanager
+def planted_fault(fault):
+    """A fault planted in the data-parallel step for the block:
+    ``"local_counts"`` divides each rank's masked means by its own count
+    (times the world size: the ranks' summed gradients are then the
+    average of per-rank means, as a plain DDP wrapper gives);
+    ``"local_statistics"`` normalises each rank's rows by their own
+    batch statistics; None plants nothing."""
+    from luminoth_tpu_torch.models.base import resnet
+    from luminoth_tpu_torch.parallel import mesh
+
+    saved = mesh.global_count, resnet.batch_moments
+    world = mesh.world()[1]
+    if fault == "local_counts":
+        mesh.global_count = lambda count: count * world
+    elif fault == "local_statistics":
+        resnet.batch_moments = lambda x, dim: (x.mean(dim=dim),
+                                               x.square().mean(dim=dim))
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        mesh.global_count, resnet.batch_moments = saved
+
+
+def ddp_parity_rank(device, jobs, variables, batch):
+    """:func:`parity_steps` of each ``(config, fault)`` job as a spawned
+    rank, the fault planted (TF32 off, as in the parent: a spawned
+    process starts with PyTorch's defaults)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for config, fault in jobs:
+        with planted_fault(fault):
+            out.append(parity_steps(config, variables, batch, device))
+    return out
+
+
+def parity_readings(got, want):
+    """The relative errors of a data-parallel step ``got`` against the
+    one-process step ``want``, by group (see ``DDP_PARITY_TOL``)."""
+    import torch
+
+    def joined(moves, like):
+        return torch.cat([moves.get(k, torch.zeros_like(v)).flatten()
+                          for k, v in sorted(like.items())])
+
+    readings = {"loss": max(abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
+                            for k, v in want["metrics"].items())}
+    moves, ones = got["moves"]["params"], want["moves"]["params"]
+    readings["head"] = max(
+        float((moves.get(k, 0) - ones[k]).norm() / ones[k].norm())
+        for k in ones if k.startswith(("rpn.", "rcnn.")))
+    for group in ("params", "stats"):
+        ones = want["moves"][group]
+        if ones:
+            readings[group] = float(
+                (joined(got["moves"][group], ones) - joined(ones, ones))
+                .norm() / joined(ones, ones).norm())
+    return readings
+
+
+def ddp_parity_phase(device):
+    """[ddp-parity]: a 2-rank train step (gloo, both ranks on ``cuda:0``,
+    spawned by ``parallel.distributed.spawn_ranks``, one image each)
+    against the 1-process step on the same global batch of two, on the
+    card, f32 with TF32 off, R50, 2x128x160, 3 classes; with fixed and
+    with batch-statistics batch norm. The two images hold 3 and 2 boxes,
+    so the ranks' masked-mean denominators differ (printed). The planted
+    faults of ``DDP_PARITY_FAULTS`` run in the same ranks: the check must
+    catch each (their readings are printed)."""
+    import numpy as np
+    from luminoth_tpu_torch.parallel.distributed import spawn_ranks
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.weights import init_variables
+
+    t0 = time.perf_counter()
+    configs = {}
+    for flag in (False, True):
+        path = train_config(
+            os.path.join(BUILD, f"ddp_parity_{flag}.yml"), 3, "float32",
+            KNOBS_PARITY_CANVAS, {"train": {"batch_size": 2}, "model": {
+                "base_network": {"architecture": "resnet_v1_50",
+                                 "train_batch_norm": flag},
+                "rpn": {"proposals": {"pre_nms_top_n": 600,
+                                      "post_nms_top_n": 64}},
+                "rcnn": {"target": {"minibatch_size": 32}}}})
+        configs[flag] = get_config([path])
+    variables = init_variables(configs[False], SEED + 51)
+    rng = np.random.default_rng(SEED + 52)
+    h, w = KNOBS_PARITY_CANVAS
+    gt = np.full((2, 4, 5), -1.0, np.float32)
+    gt[0, :3] = [[10, 12, 70, 60, 0], [50, 30, 150, 110, 2],
+                 [90, 5, 140, 50, 1]]
+    gt[1, :2] = [[5, 5, 110, 100, 1], [70, 50, 155, 120, 0]]
+    batch = {"image": (rng.random((2, h, w, 3)) * 255).astype(np.float32),
+             "gt_boxes": gt}
+    jobs = [(flag, fault) for flag in (False, True)
+            for fault in (None,) + DDP_PARITY_FAULTS[flag]]
+    ranks = spawn_ranks(ddp_parity_rank, [device, device], backend="gloo",
+                        args=([(configs[f], fault) for f, fault in jobs],
+                              variables, batch),
+                        timeout=DDP_RANK_TIMEOUT_S)
+    ones = {flag: parity_steps(configs[flag], variables, batch, device)
+            for flag in (False, True)}
+    lines = []
+    for i, (flag, fault) in enumerate(jobs):
+        got = [rank[i] for rank in ranks]
+        if got[0]["metrics"] != got[1]["metrics"]:
+            raise AssertionError(f"[ddp-parity] {fault or 'sound'}: the "
+                                 "ranks' metrics differ")
+        tol = DDP_PARITY_TOL[flag]
+        readings = parity_readings(got[0], ones[flag])
+        same = [sorted(got[0]["moves"][g]) for g in ("params", "stats")] == [
+            sorted(ones[flag]["moves"][g]) for g in ("params", "stats")]
+        caught = not same or any(readings[k] > limit
+                                 for k, limit in tol.items())
+        line = dict(fault=fault or "none", train_batch_norm=flag,
+                    same_tensors_moved=same)
+        if fault is None:
+            local = [[a for a, _ in r["counts"]] for r in got]
+            if local[0] == local[1] or [
+                    a + b for a, b in zip(*local)] != [
+                    t for _, t in got[0]["counts"]]:
+                raise AssertionError(f"[ddp-parity] denominators {local} "
+                                     f"of {got[0]['counts']}")
+            if caught:
+                raise AssertionError(
+                    f"[ddp-parity] train_batch_norm={flag}: readings "
+                    f"{readings} (tolerances {tol})")
+            line.update(
+                rank0_denominators="/".join(f"{v:g}" for v in local[0]),
+                rank1_denominators="/".join(f"{v:g}" for v in local[1]))
+        elif not caught:
+            raise AssertionError(
+                f"[ddp-parity] train_batch_norm={flag}: the planted fault "
+                f"{fault} passed, readings {readings} (tolerances {tol})")
+        line.update({f"{k}_rel_err": f"{readings[k]:.2e}" for k in tol})
+        line["tolerances"] = "/".join(f"{k}:{v:g}" for k, v in tol.items())
+        lines.append(line)
+    for numbers in lines:
+        phase("ddp-parity", model="resnet_v1_50", dtype="float32",
+              images="2x{}x{}".format(*KNOBS_PARITY_CANVAS), ranks=2,
+              backend="gloo", **numbers,
+              wall_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def dp_eval_phase(model, config, device, card):
+    """[dp-eval]: ``evaluate_once`` on [eval]'s checkpoint and images with
+    the device list ``[cuda:0, cuda:0]`` (two replicas of 4 rows each
+    per batch of 8) against one device running the same rows (batch 4):
+    the AP/AR must be equal bit for bit; with random weights they are 0,
+    so the detections of one batch of 8 through the replicas must also
+    equal, bit for bit, one device's forwards of the same rows. The
+    difference to [eval]'s one-device batch of 8 is printed (cuDNN picks
+    its algorithms per shape). K1 and K2 held on the last data-parallel
+    forward's tensors."""
+    import numpy as np
+    import torch
+    from luminoth_tpu_torch import eval as evaluator
+    from luminoth_tpu_torch.parallel.mesh import batch_shard, replicate
+
+    keys = ("AP@0.5", "AP@0.75", "AP@[0.5:0.95]", "AR@[0.5:0.95]")
+    whole = evaluator.evaluate_once(config, model)
+    k1s, k2s = [], []
+    with capturing_k1(k1s) as k1, capturing_k2(k2s) as k2:
+        two = evaluator.evaluate_once(config, model,
+                                      devices=[device, device])
+    launches = {"k1": k1.launches, "k2": k2.launches}
+    batches = math.ceil(EVAL_IMAGES / BATCH)
+    check_forwards("dp-eval", launches, 2 * batches)
+    config.train.batch_size = BATCH // 2
+    try:
+        rows = evaluator.evaluate_once(config, model)
+    finally:
+        config.train.batch_size = BATCH
+    if [two[k] for k in keys] != [rows[k] for k in keys] or (
+            two["images"] != EVAL_IMAGES):
+        raise AssertionError(f"[dp-eval] over two replicas {two}, one "
+                             f"device on the same rows {rows}")
+    hold_k1(k1s[-4:], "dp-eval", timed=False)
+    k2_errors = []
+    hold_k2(k2s[-2:], "dp-eval", errors=k2_errors, timed=False)
+
+    rng = np.random.default_rng(SEED + 61)
+    image = torch.from_numpy(rng.integers(
+        0, 256, (BATCH, *CANVAS, 3), dtype=np.uint8)).to(device)
+    gt = torch.from_numpy(random_gt(rng, BATCH, 4, *CANVAS, 80, 8)).to(
+        device)
+    shape = torch.tensor([CANVAS] * BATCH, dtype=torch.float32,
+                         device=device)
+    half = BATCH // 2
+    with torch.inference_mode():
+        got = evaluator.replicated_forward(replicate(
+            model, [device, device]))(model, image, gt, shape)
+        want = []
+        for i in range(2):
+            with batch_shard(i, 2):
+                rows = slice(i * half, (i + 1) * half)
+                want.append(evaluator.eval_forward(
+                    model, image[rows], gt[rows], shape[rows])[:4])
+    detections = int(got[3].sum())
+    if not detections or not all(
+            torch.equal(g, torch.cat([w[j] for w in want]))
+            for j, g in enumerate(got[:4])):
+        raise AssertionError("[dp-eval] the replicas' detections are not "
+                             "one device's on the same rows")
+    phase("dp-eval", model="resnet_v1_101", classes=80, dtype="bfloat16",
+          canvas=f"{CANVAS[0]}x{CANVAS[1]}", batch=BATCH, replicas=2,
+          devices="cuda:0/cuda:0", images=two["images"],
+          k1_launches=launches["k1"], k2_launches=launches["k2"],
+          equal_to_one_device_same_rows=True,
+          detections_equal=detections,
+          ap=f"{two['AP@[0.5:0.95]']:.6f}",
+          ap_diff_to_one_device_b8=f"{two['AP@[0.5:0.95]'] - whole['AP@[0.5:0.95]']:.2e}",
+          ar_diff_to_one_device_b8=f"{two['AR@[0.5:0.95]'] - whole['AR@[0.5:0.95]']:.2e}",
+          k2_max_abs_err=max(k2_errors),
+          images_per_s=f"{two['images_per_second']:.2f}",
+          one_device_images_per_s=f"{whole['images_per_second']:.2f}",
+          card=f"'{card}'")
+    return launches
+
+
+# ------------------------------------------- TF V2 bundle writer ([slim-train])
+# The GPU host needs no TensorFlow, and the package reads TF checkpoints
+# but writes none: this is the least writer of the V2 tensor-bundle format
+# (prefix.index, a leveldb table of BundleEntryProto; prefix.data-00000-of-
+# 00001, the raw tensors), float32/int32/int64, blocks stored uncompressed.
+
+SSTABLE_MAGIC = bytes.fromhex("57fb808b247547db")
+TF_DTYPES = {"float32": 1, "int32": 3, "int64": 9}
+
+
+def pb_varint(value):
+    out = bytearray()
+    while True:
+        byte, value = value & 0x7F, value >> 7
+        out.append(byte | (0x80 if value else 0))
+        if not value:
+            return bytes(out)
+
+
+def pb_field(number, value):
+    """One protobuf field: an int as a varint, bytes length-delimited."""
+    if isinstance(value, int):
+        return pb_varint(number << 3) + pb_varint(value)
+    return pb_varint(number << 3 | 2) + pb_varint(len(value)) + value
+
+
+def masked_crc(data):
+    from luminoth_tpu_torch.formats.crc32c import masked_crc32c
+
+    return masked_crc32c(data)
+
+
+def table_block(entries):
+    """A leveldb block, one restart per entry, and its 5-byte trailer."""
+    body, restarts = bytearray(), []
+    for key, value in entries:
+        restarts.append(len(body))
+        body += pb_varint(0) + pb_varint(len(key)) + pb_varint(len(value))
+        body += key + value
+    restarts = restarts or [0]
+    for offset in restarts:
+        body += offset.to_bytes(4, "little")
+    body += len(restarts).to_bytes(4, "little")
+    return bytes(body) + b"\0" + masked_crc(bytes(body) + b"\0").to_bytes(
+        4, "little")
+
+
+def write_tf_bundle(prefix, tensors):
+    """Write ``{name: ndarray}`` as a TF V2 checkpoint at ``prefix``."""
+    import numpy as np
+
+    data, entries = bytearray(), []
+    for name in sorted(tensors):
+        value = np.asarray(tensors[name], order="C")
+        raw = value.astype(value.dtype.newbyteorder("<")).tobytes()
+        shape = b"".join(pb_field(2, pb_field(1, int(d)))
+                         for d in value.shape)
+        entry = (pb_field(1, TF_DTYPES[value.dtype.name])
+                 + pb_field(2, shape) + pb_field(4, len(data))
+                 + pb_field(5, len(raw))
+                 + pb_varint(6 << 3 | 5) + masked_crc(raw).to_bytes(
+                     4, "little"))
+        entries.append((name.encode(), entry))
+        data += raw
+    header = pb_field(1, 1) + pb_field(3, pb_field(1, 1))  # 1 shard, v1
+    blocks = table_block([(b"", header)] + entries)
+    meta = table_block([])
+    handle = pb_varint(0) + pb_varint(len(blocks) - 5)
+    index = table_block([(entries[-1][0] if entries else b"", handle)])
+    footer = (pb_varint(len(blocks)) + pb_varint(len(meta) - 5)
+              + pb_varint(len(blocks) + len(meta)) + pb_varint(len(index) - 5))
+    footer = footer.ljust(40, b"\0") + SSTABLE_MAGIC
+    with open(prefix + ".index", "wb") as f:
+        f.write(blocks + meta + index + footer)
+    with open(prefix + ".data-00000-of-00001", "wb") as f:
+        f.write(data)
+    return prefix
+
+
 def main():
     import torch
 
@@ -3985,8 +4791,12 @@ def main():
     knobs_resume(device)
     tf_debug_phase(device)
     torch.cuda.empty_cache()
+    paths["ddp"], ddp_k3_err = ddp_phase(device, card, train_numbers)
+    ddp_parity_phase(device)
+    torch.cuda.empty_cache()
     paths["eval"], eval_model, eval_config = eval_phase(device, card)
     paths["eval_files"] = eval_files_phase(eval_model, eval_config)
+    paths["dp_eval"] = dp_eval_phase(eval_model, eval_config, device, card)
     del eval_model
     check_eval_parity(device)
     paths["predict"] = predict_phase(device)
@@ -3997,6 +4807,9 @@ def main():
     torch.cuda.empty_cache()
     paths["backbones"], k2_backbones = backbones_phase(device, card)
     paths["pretrained_train"], pretrained = pretrained_train_phase(
+        device, card)
+    paths["slim_train"], slim_k3_err = slim_train_phase(device, card)
+    paths["convert_detector"], detector_k2_err = convert_detector_phase(
         device, card)
     paths["dataset"], dataset_k2_err, dataset_k3_err = dataset_phase(
         device, card)
@@ -4043,7 +4856,7 @@ def main():
          "launches": sum(by_path("k2").values()),
          "launches_by_path": by_path("k2"),
          "max_abs_err": max([k2_err, fast_k2["max_abs_err"],
-                             dataset_k2_err, knobs_k2_err]
+                             dataset_k2_err, knobs_k2_err, detector_k2_err]
                             + [x["max_abs_err"] for x in k2_shapes]), **k2,
          "shapes": [{"rois": K2_SHAPE[1], "channels": K2_SHAPE[4],
                      "on": "random boxes", "max_abs_err": k2_err, **k2},
@@ -4053,7 +4866,8 @@ def main():
          "replaces": "luminoth_tpu/ops/pallas/roi_align_kernel.py:189",
          "launches": sum(by_path("k3").values()),
          "launches_by_path": by_path("k3"),
-         "max_abs_err": max([k3_err, dataset_k3_err]
+         "max_abs_err": max([k3_err, dataset_k3_err, slim_k3_err,
+                             ddp_k3_err]
                             + [x["max_abs_err"] for x in k3_shapes]),
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound_ms, "bound_by": k3_bound_by,
@@ -4073,4 +4887,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--ddp-rank" in sys.argv:  # one rank of [ddp], started by ddp_phase
+        options = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        sys.exit(ddp_rank_main(int(options["--ddp-rank"]),
+                               int(options["--port"]), options["--out"]))
     sys.exit(main())

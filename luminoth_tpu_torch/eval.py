@@ -17,7 +17,13 @@ With a summary writer, ``files_per_class`` > 0 writes up to that many
 ``draw_object_predictions`` images per detected class (tags
 ``<class>/<n>``, probability at least 0.5), as the JAX package does.
 
-Not ported: data-parallel evaluation over several devices.
+Data-parallel evaluation (the JAX package's ``_eval_mesh``): in one
+process, the model is replicated on each of the largest number of devices
+that divides the batch (``evaluate_once(devices=...)``; ``eval`` takes
+every visible CUDA device). Each replica runs its rows of the batch, all
+forwards are launched before any output is read, and the predictions are
+gathered in batch order on the first device, where the losses are taken
+over the whole batch, as on one device.
 """
 
 import logging
@@ -31,6 +37,11 @@ import torch
 from luminoth_tpu_torch.datasets import get_dataset
 from luminoth_tpu_torch.models import get_model
 from luminoth_tpu_torch.ops.np_boxes import bbox_overlap
+from luminoth_tpu_torch.parallel.mesh import (
+    data_parallel_count,
+    replicate,
+    run_replicas,
+)
 from luminoth_tpu_torch.formats.tfevents import SummaryWriter
 from luminoth_tpu_torch.train import prefetch_to_device
 from luminoth_tpu_torch.utils.checkpoint_io import (
@@ -167,6 +178,40 @@ def eval_forward(model, image, gt_boxes, im_shape):
     return cp["objects"], cp["labels"], cp["probs"], cp["valid"], losses
 
 
+def replicated_forward(replicas):
+    """The eval forward data-parallel over ``replicas`` (the model first,
+    then its copies; :func:`~luminoth_tpu_torch.parallel.mesh.replicate`):
+    replica ``i`` runs row block ``i`` of the batch (its fixed target
+    draws are that block of the global batch's), every forward is
+    launched before any is read, and the predictions are joined in batch
+    order on the batch's device, where the model's loss is taken."""
+    model = replicas[0]
+
+    def forward(_, image, gt_boxes, im_shape):
+        if image.dtype == torch.uint8:
+            image = image.float()
+        merged = run_replicas(
+            replicas, lambda replica, x, gt, shape: replica(
+                x, gt_boxes=gt, im_shape=shape), image, gt_boxes, im_shape)
+        cp = merged["classification_prediction"]
+        losses = model.loss(merged, return_all=True)
+        return cp["objects"], cp["labels"], cp["probs"], cp["valid"], losses
+
+    return forward
+
+
+def eval_devices(batch_size, device=None):
+    """The devices ``eval`` runs on: ``device`` when given, else the
+    largest number of visible CUDA devices that divides the batch (one:
+    the current device)."""
+    if device is not None or not torch.cuda.is_available():
+        return [resolve_device(device)]
+    count = data_parallel_count(batch_size, torch.cuda.device_count())
+    if count == 1:
+        return [resolve_device(None)]
+    return [torch.device("cuda", i) for i in range(count)]
+
+
 def _fetch(outs):
     """Queue the host copies of a forward's outputs.
 
@@ -187,7 +232,7 @@ def _fetch(outs):
 
 
 def evaluate_once(config, model, writer=None, global_step=0, forward=None,
-                  max_batches=None, files_per_class=0):
+                  max_batches=None, files_per_class=0, devices=None):
     """Evaluate ``model`` (with its weights) over the configured split.
 
     Returns a metrics dict (AP/AR aggregates, mean losses, the image count
@@ -195,12 +240,24 @@ def evaluate_once(config, model, writer=None, global_step=0, forward=None,
     one forward). ``forward(model, image, gt_boxes, im_shape)`` returns
     ``(objects, labels, probs, valid, losses)``; by default
     :func:`eval_forward`. The batches go to the model's device.
+
+    ``devices``: evaluate data-parallel over the largest number of them
+    that divides the batch (a device may repeat): ``model`` moves to the
+    first and a copy of it goes to each other (:func:`replicated_forward`).
     """
     num_classes = int(config.model.network.num_classes)
     dataset = get_dataset(config.dataset.type)(
         config, shuffle=False, num_epochs=1, augment=False,
         pad_final_batch=True,
     )
+    if devices is not None and len(devices) > 1:
+        count = data_parallel_count(
+            int(config.train.get("batch_size") or 1), len(devices))
+        if count > 1:
+            replicas = replicate(model.eval(), devices[:count])
+            logger.info("Evaluating data-parallel over %d devices", count)
+            if forward is None:
+                forward = replicated_forward(replicas)
     if forward is None:
         forward = eval_forward
     device = torch.device("cpu")
@@ -359,7 +416,7 @@ def apply_eval_config_mutations(config, dataset_split, max_detections=100):
 
 def watch_checkpoints(config, model, run_dir, watch=True,
                       from_global_step=None, writer=None, forward=None,
-                      files_per_class=0):
+                      files_per_class=0, devices=None):
     """Evaluate each new checkpoint in ``run_dir`` (the eval loop body).
 
     Each checkpoint's weights are loaded into ``model`` in turn. A
@@ -404,6 +461,7 @@ def watch_checkpoints(config, model, run_dir, watch=True,
             evaluate_once(
                 config, model, writer=writer, global_step=step,
                 forward=forward, files_per_class=files_per_class,
+                devices=devices,
             )
             last_step = step
         if not watch:
@@ -433,16 +491,17 @@ def watch_checkpoints(config, model, run_dir, watch=True,
     help="Maximum detections considered per image.")
 @click.option(
     "--device", default=None,
-    help="Torch device (default: the current CUDA device).")
+    help="Torch device (default: the largest number of visible CUDA "
+         "devices that divides the batch).")
 def eval(dataset_split, config_files, watch, from_global_step,
          override_params, files_per_class, max_detections, device):
     """The port's ``lumi eval``."""
     logging.basicConfig(level=logging.INFO)
-    device = resolve_device(device)
     config = get_config(list(config_files), override_params=override_params)
     apply_eval_config_mutations(config, dataset_split, max_detections)
+    devices = eval_devices(int(config.train.get("batch_size") or 1), device)
     model = get_model(config.model.type)(
-        config, dtype=model_dtype(config)).to(device)
+        config, dtype=model_dtype(config)).to(devices[0])
 
     run_dir = os.path.join(config.train.get("job_dir", "jobs/"),
                            config.train.get("run_name") or "default")
@@ -450,5 +509,5 @@ def eval(dataset_split, config_files, watch, from_global_step,
     watch_checkpoints(
         config, model, run_dir, watch=watch,
         from_global_step=from_global_step, writer=writer,
-        files_per_class=files_per_class,
+        files_per_class=files_per_class, devices=devices,
     )

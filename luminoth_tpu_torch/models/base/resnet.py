@@ -33,6 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from luminoth_tpu_torch.parallel.mesh import batch_moments
+
 # (base_depth, num_units, stride) per block; stride applies to the LAST unit.
 RESNET_BLOCK_DEFS = {
     50: ((64, 3, 2), (128, 4, 2), (256, 6, 2), (512, 3, 1)),
@@ -67,7 +69,8 @@ class BatchNorm(nn.Module):
     batch's biased statistics, computed in float32 as flax's
     ``use_fast_variance`` does (E[x²] − E[x]², clipped at 0), and moves the
     running ones by ``ra = 0.997·ra + 0.003·batch`` with that biased
-    variance. ``F.batch_norm(training=True)`` would move ``running_var``
+    variance. Under data parallelism the statistics are the global
+    batch's (``parallel/mesh.batch_moments``), as under the JAX mesh. ``F.batch_norm(training=True)`` would move ``running_var``
     by the unbiased variance, so the update is written out here.
     """
 
@@ -89,9 +92,8 @@ class BatchNorm(nn.Module):
 
     def _batch_statistics_forward(self, x):
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp_min(
-            xf.square().mean(dim=(0, 2, 3)) - mean.square(), 0.0)
+        mean, mean_sq = batch_moments(xf, dim=(0, 2, 3))
+        var = torch.clamp_min(mean_sq - mean.square(), 0.0)
         if _UPDATE_RUNNING_STATS.get():
             with torch.no_grad():
                 self.running_mean.copy_(BN_MOMENTUM * self.running_mean

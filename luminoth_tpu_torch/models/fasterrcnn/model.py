@@ -40,12 +40,8 @@ from luminoth_tpu_torch.ops.anchors import (
 )
 from luminoth_tpu_torch.ops.losses import smooth_l1_loss, softmax_cross_entropy
 from luminoth_tpu_torch.ops.roi_align import roi_crop_pool_batch
+from luminoth_tpu_torch.parallel.mesh import masked_mean
 from luminoth_tpu_torch.utils.config import Config
-
-
-def _masked_mean(values, mask):
-    mask = mask.to(values.dtype)
-    return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def _gather_rows(values, indices):
@@ -280,7 +276,8 @@ class FasterRCNN(nn.Module):
         Masked means: the RPN classification over non-ignored anchors, the
         RPN regression over positives, the RCNN classification over labeled
         selected proposals and the RCNN regression (the target class's
-        deltas) over selected foregrounds. ``return_all`` returns the parts
+        deltas) over selected foregrounds. Under data parallelism each
+        count is over the global batch (``parallel/mesh.masked_mean``). ``return_all`` returns the parts
         with ``total_loss`` and ``no_reg_loss`` (both the sum; the trainer
         adds the L2 term to ``total_loss``).
         """
@@ -291,12 +288,12 @@ class FasterRCNN(nn.Module):
         cls_target = rpn_pred["rpn_cls_target"]  # (B, A) in {-1, 0, 1}
         one_hot = F.one_hot(cls_target.clamp(min=0).long(), 2).float()
         ce = softmax_cross_entropy(rpn_pred["rpn_cls_score"], one_hot)
-        rpn_cls_loss = _masked_mean(ce, cls_target >= 0)
+        rpn_cls_loss = masked_mean(ce, cls_target >= 0)
         reg = smooth_l1_loss(
             rpn_pred["rpn_bbox_pred"], rpn_pred["rpn_bbox_target"],
             sigma=cfg.model.rpn.l1_sigma,
         )
-        rpn_reg_loss = _masked_mean(reg, cls_target == 1)
+        rpn_reg_loss = masked_mean(reg, cls_target == 1)
         losses = {
             "rpn_cls_loss": rpn_cls_loss * loss_cfg.rpn_cls_loss_weight,
             "rpn_reg_loss": rpn_reg_loss * loss_cfg.rpn_reg_loss_weights,
@@ -312,7 +309,7 @@ class FasterRCNN(nn.Module):
                 rc_target.clamp(min=0).long(), self.num_classes + 1
             ).float()
             ce = softmax_cross_entropy(rcnn["cls_score"], one_hot)
-            rcnn_cls_loss = _masked_mean(ce, (rc_target >= 0) & selected)
+            rcnn_cls_loss = masked_mean(ce, (rc_target >= 0) & selected)
 
             # The predicted deltas of the target class.
             cls_idx = (rc_target - 1).clamp(min=0).long()
@@ -324,7 +321,7 @@ class FasterRCNN(nn.Module):
             )[..., 0, :]
             reg = smooth_l1_loss(picked, target["bbox_offsets"],
                                  sigma=cfg.model.rcnn.l1_sigma)
-            rcnn_reg_loss = _masked_mean(reg, (rc_target > 0) & selected)
+            rcnn_reg_loss = masked_mean(reg, (rc_target > 0) & selected)
             losses["rcnn_cls_loss"] = (
                 rcnn_cls_loss * loss_cfg.rcnn_cls_loss_weight
             )

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from luminoth_tpu_torch.parallel.mesh import rand_rows
 from luminoth_tpu_torch.utils.vars import get_activation
 
 
@@ -50,8 +51,7 @@ class RCNNHead(nn.Module):
     def _dropout(self, net, generator):
         if not self.training or self.keep_prob >= 1.0:
             return net
-        keep = torch.rand(net.shape, generator=generator,
-                          device=net.device) < self.keep_prob
+        keep = rand_rows(net.shape, generator, net.device) < self.keep_prob
         return torch.where(keep, net / self.keep_prob, torch.zeros_like(net))
 
     def forward(self, roi_features, generator=None):

@@ -18,14 +18,13 @@ import torch
 
 from luminoth_tpu_torch.ops.boxes import encode, iou_matrix
 from luminoth_tpu_torch.ops.select import top_k_mask
+from luminoth_tpu_torch.parallel.mesh import rand_rows
 
 
 def draw_priorities(shape, generator, device):
-    """The (fg, bg) pair of uniform [0, 1) priorities for one stage."""
-    return tuple(
-        torch.rand(shape, generator=generator, device=device)
-        for _ in range(2)
-    )
+    """The (fg, bg) pair of uniform [0, 1) priorities for one stage (a
+    data-parallel rank draws the global batch's and keeps its rows)."""
+    return tuple(rand_rows(shape, generator, device) for _ in range(2))
 
 
 def keep_random_quota(candidate_mask, quota, priorities):

@@ -24,6 +24,7 @@ from luminoth_tpu_torch.models.ssd.feature_extractor import SSDFeatureExtractor
 from luminoth_tpu_torch.models.ssd.proposal import ssd_proposal
 from luminoth_tpu_torch.models.ssd.target import ssd_target_assign
 from luminoth_tpu_torch.ops.losses import smooth_l1_loss, softmax_cross_entropy
+from luminoth_tpu_torch.parallel.mesh import batch_mean
 from luminoth_tpu_torch.utils.config import Config
 
 
@@ -191,11 +192,11 @@ class SSD(nn.Module):
                                                               min=1.0),
             zero,
         )
-        total_loss = torch.mean(per_image)
+        total_loss = batch_mean(per_image)
         if return_all:
             return {
                 "total_loss": total_loss,
-                "cls_loss": torch.mean(cls_loss),
-                "bbox_loss": torch.mean(bbox_loss),
+                "cls_loss": batch_mean(cls_loss),
+                "bbox_loss": batch_mean(bbox_loss),
             }
         return total_loss

@@ -14,9 +14,10 @@ A remote index is any ``urllib`` URL in ``LUMI_REMOTE_INDEX_URL``
 (``file://`` for a shared filesystem); there is no hosted default, so
 nothing is fetched unless it is set.
 
-Not ported: ``convert-backbone --source slim`` and ``convert-detector``
-read TensorFlow checkpoints, and ``download-backbone`` needs the network;
-each raises ``NotImplementedError``.
+``convert-backbone --source slim`` and ``convert-detector`` read TensorFlow
+checkpoints with the port's own reader (``formats/tf_checkpoint.py``), no
+TensorFlow needed. Not ported: ``download-backbone`` needs the network and
+raises ``NotImplementedError``.
 """
 
 import json
@@ -622,17 +623,10 @@ def download(id_or_alias):
     click.echo("Checkpoint downloaded.")
 
 
-_NEEDS_TF = (
-    "reading TF-slim and TF detector checkpoints needs tensorflow, which "
-    "the port does not use: convert them with the JAX package's `lumi "
-    "checkpoint` ({what}) and load its output"
-)
-
-
 @checkpoint.command(
     "convert-backbone",
-    help="Convert pretrained torchvision backbone weights (.pth) into "
-         "native .npz weights.",
+    help="Convert pretrained backbone weights (slim .ckpt or torchvision "
+         ".pth) into native .npz weights.",
 )
 @click.argument("ckpt_path")
 @click.argument("out_path")
@@ -645,7 +639,7 @@ _NEEDS_TF = (
     "--source", type=click.Choice(["auto", "slim", "torchvision"]),
     default="auto",
     help="Checkpoint format; 'auto' picks slim for .ckpt prefixes and "
-         "torchvision for .pth files. Only torchvision is ported.",
+         "torchvision for .pth files.",
 )
 def convert_backbone(ckpt_path, out_path, architecture, source):
     if source == "auto":
@@ -653,6 +647,8 @@ def convert_backbone(ckpt_path, out_path, architecture, source):
         if base.endswith((".pth", ".pt")):
             source = "torchvision"
         elif ".ckpt" in base or not os.path.splitext(base)[1]:
+            # slim checkpoints are "<name>.ckpt" prefixes (possibly with
+            # .data-*/.index suffixes) or bare prefixes.
             source = "slim"
         else:
             raise click.UsageError(
@@ -661,26 +657,45 @@ def convert_backbone(ckpt_path, out_path, architecture, source):
                 "prefix. Pass --source explicitly."
             )
     if source == "slim":
-        raise NotImplementedError(
-            _NEEDS_TF.format(what="convert-backbone --source slim"))
-    from luminoth_tpu_torch.tools.checkpoint.convert import (
-        convert_backbone_file,
-    )
+        from luminoth_tpu_torch.tools.checkpoint.slim_convert import (
+            convert_slim_checkpoint_file,
+        )
 
-    count = convert_backbone_file(ckpt_path, out_path, architecture)
+        count = convert_slim_checkpoint_file(ckpt_path, out_path, architecture)
+    else:
+        from luminoth_tpu_torch.tools.checkpoint.convert import (
+            convert_backbone_file,
+        )
+
+        count = convert_backbone_file(ckpt_path, out_path, architecture)
     click.echo(f"Converted {count} arrays to {out_path}.")
 
 
 @checkpoint.command(
     "convert-detector",
-    help="Convert a trained TF detector checkpoint (not ported: needs "
-         "tensorflow).",
+    help="Convert a trained reference (TF/Luminoth) detector checkpoint "
+         "into a native checkpoint directory usable as train.job_dir.",
 )
 @click.argument("ckpt_path")
 @click.argument("out_dir")
-@click.option("config_files", "--config", "-c", multiple=True)
+@click.option(
+    "config_files", "--config", "-c", required=True, multiple=True,
+    help="Model config matching the checkpoint (type, architecture, "
+         "num_classes).",
+)
 def convert_detector(ckpt_path, out_dir, config_files):
-    raise NotImplementedError(_NEEDS_TF.format(what="convert-detector"))
+    from luminoth_tpu_torch.tools.checkpoint.zoo_convert import (
+        convert_zoo_checkpoint,
+    )
+
+    config = get_config([*config_files])
+    n_loaded, n_total = convert_zoo_checkpoint(
+        ckpt_path, os.path.join(out_dir, "ckpt"), config
+    )
+    click.echo(
+        f"Converted {n_loaded}/{n_total} arrays into {out_dir}/ckpt. "
+        f"Point train.job_dir at {out_dir} to predict/evaluate."
+    )
 
 
 @checkpoint.command(

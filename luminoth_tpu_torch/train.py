@@ -2,7 +2,7 @@
 summaries, and the ``train`` command.
 
 Counterpart of the JAX package's ``train.py`` on one CUDA device (or the
-CPU, for tests). The step is the JAX ``make_train_step``'s: uint8 images
+CPU, for tests), or data-parallel over several. The step is the JAX ``make_train_step``'s: uint8 images
 cast to float on the device, the forward with ground truth, the model's
 loss (Faster R-CNN's 4 parts, or SSD's multibox loss: SSD makes no
 detections in training and launches no kernel), gradients of the
@@ -29,12 +29,26 @@ are TensorBoard event files written by ``formats/tfevents.py``. A logged
 run appends its line to the run journal (``utils/experiments.py``,
 ``runs.json`` in the toolkit's home).
 
-Not ported (each raises ``NotImplementedError``): more than one device
-(``train.spatial_shards > 1``, a device list, or the
-``LUMI_COORDINATOR``/``LUMI_DISTRIBUTED_AUTO`` multi-process environment).
+Data parallelism (``parallel/``): one process per device in a
+``torch.distributed`` group, the JAX package's 1-D data mesh. Every rank
+reads the same global batch in the same order and trains on its rows; the
+step's numbers are the one-process step's on the global batch (global
+loss counts, draws and batch statistics, see ``parallel/mesh.py``; summed
+gradients, so the clip sees the global norm; the L2 term added once).
+Only the chief (rank 0) writes checkpoints, summaries, the monitor
+forwards' images, the run journal and the trace; on resume the chief
+restores and broadcasts its state. Groups form from ``run(device=[d0,
+d1, ...])`` (one spawned rank per device, as many as divide the batch; by
+default every visible CUDA device), or from the ``LUMI_COORDINATOR``/
+``LUMI_DISTRIBUTED_AUTO`` environment of a launcher that starts the ranks
+itself (``parallel/distributed.py``).
+
+Not ported (raises ``NotImplementedError``): ``train.spatial_shards > 1``,
+the JAX package's 2-D (data, space) mesh.
 """
 
 import collections
+import copy
 import dataclasses
 import logging
 import math
@@ -45,10 +59,26 @@ from typing import Any
 import click
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from luminoth_tpu_torch.datasets import get_dataset
 from luminoth_tpu_torch.models import get_model
 from luminoth_tpu_torch.formats.tfevents import SummaryWriter
+from luminoth_tpu_torch.parallel.distributed import (
+    initialize_from_env,
+    local_device,
+    requested,
+    shared_seed,
+    spawn_ranks,
+    sync_state_from_chief,
+)
+from luminoth_tpu_torch.parallel.mesh import (
+    all_reduce_tensors,
+    batch_shard,
+    data_parallel_count,
+    shard_batch,
+    world,
+)
 from luminoth_tpu_torch.utils.checkpoint_io import CheckpointManager
 from luminoth_tpu_torch.utils.config import get_config
 from luminoth_tpu_torch.utils.experiments import save_run
@@ -71,8 +101,6 @@ logger = logging.getLogger("luminoth_tpu_torch.train")
 
 TRACE_STEPS = 5  # full_trace/save_timeline: the steps traced
 
-_DISTRIBUTED_ENV = ("LUMI_COORDINATOR", "LUMI_DISTRIBUTED_AUTO")
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -86,15 +114,11 @@ class TrainState:
 
 
 def check_config(config):
-    """Raise ``NotImplementedError`` for more than one device, which is not
-    ported."""
+    """Raise ``NotImplementedError`` for ``train.spatial_shards > 1`` (the
+    2-D data x space mesh), which is not ported."""
     if int(config.train.get("spatial_shards") or 1) > 1:
         raise NotImplementedError(
-            "train.spatial_shards > 1 (more than one device) is not ported")
-    for name in _DISTRIBUTED_ENV:
-        if os.environ.get(name):
-            raise NotImplementedError(
-                f"multi-process training ({name} is set) is not ported")
+            "train.spatial_shards > 1 (the data x space mesh) is not ported")
 
 
 def step_generator(seed, step, device):
@@ -152,12 +176,19 @@ def watch_outputs(model, step_of):
     return [module.register_forward_hook(hook) for module in module_names]
 
 
-def make_train_step(model, optimizer, reg_fn=None, debug_nans=False):
+def make_train_step(model, optimizer, reg_fn=None, debug_nans=False,
+                    group=None):
     """The train step over the parameters of ``model`` that require grad.
 
     Returns ``train_step(batch, step, generator, priorities=None) ->
     metrics``: one forward/backward and one optimizer update (in place).
-    ``reg_fn()`` gives the L2 term reported in ``total_loss``. With
+    ``reg_fn()`` gives the L2 term reported in ``total_loss``. With a
+    process ``group`` of more than one rank, ``batch`` is this rank's rows
+    of the global batch: the forward, loss and backward run inside
+    :func:`~luminoth_tpu_torch.parallel.mesh.batch_shard`, then the
+    gradients and the losses are summed over the group in one all-reduce
+    (only the parameters that require grad take part), so the update, the
+    clip's norm and the metrics are the global batch's. With
     ``debug_nans`` (``tf_debug``) a step raises ``FloatingPointError``
     before its update at the first non-finite module output
     (:func:`watch_outputs`, whose hooks ``train_step.debug_hooks`` holds),
@@ -166,6 +197,9 @@ def make_train_step(model, optimizer, reg_fn=None, debug_nans=False):
     params = {name: p for name, p in model.named_parameters()
               if p.requires_grad}
     current = [0]
+    rank, world_size = ((dist.get_rank(group), dist.get_world_size(group))
+                        if group is not None else (0, 1))
+    group = group if world_size > 1 else None
 
     def train_step(batch, step, generator, priorities=None):
         current[0] = step + 1
@@ -173,17 +207,25 @@ def make_train_step(model, optimizer, reg_fn=None, debug_nans=False):
         if images.dtype == torch.uint8:
             images = images.float()  # the uint8 transfer path
         model.train()
-        preds = model(images, gt_boxes=batch["gt_boxes"],
-                      im_shape=batch.get("im_shape"), generator=generator,
-                      priorities=priorities)
-        losses = model.loss(preds, return_all=True)
-        grads = torch.autograd.grad(losses["total_loss"],
-                                    list(params.values()), allow_unused=True)
+        with batch_shard(rank, world_size, group):
+            preds = model(images, gt_boxes=batch["gt_boxes"],
+                          im_shape=batch.get("im_shape"),
+                          generator=generator, priorities=priorities)
+            losses = model.loss(preds, return_all=True)
+            grads = torch.autograd.grad(losses["total_loss"],
+                                        list(params.values()),
+                                        allow_unused=True)
         grads = {
             name: torch.zeros_like(p) if g is None else g
             for (name, p), g in zip(params.items(), grads)
         }
         metrics = {name: value.detach() for name, value in losses.items()}
+        if group is not None:
+            # Each rank's loss is its share of the global loss: sum.
+            summed = all_reduce_tensors(
+                list(grads.values()) + list(metrics.values()), group)
+            grads = dict(zip(grads, summed[:len(grads)]))
+            metrics = dict(zip(metrics, summed[len(grads):]))
         if debug_nans:
             check_finite(step + 1, metrics, grads, model)
         if reg_fn is not None:
@@ -304,37 +346,13 @@ def _start_trace(trace_dir, device):
     return trace
 
 
-def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
-        environment=None, max_steps=None, device=None):
-    """Train a model per config on one device. Returns a :class:`TrainState`.
-
-    ``device``: a torch device (None: the current CUDA device; there is no
-    silent CPU fallback, pass ``"cpu"`` explicitly).
-    """
-    if isinstance(device, (list, tuple)):
-        if len(device) != 1:
-            raise NotImplementedError(
-                "training on more than one device is not ported")
-        device = device[0]
-    device = resolve_device(device)
-    check_config(config)
+def build_model_and_optimizer(config, get_model_fn, device):
+    """The model with its initial weights (``train.seed``, then
+    ``base_network.weights``) on ``device``, frozen per ``fine_tune_from``,
+    and its optimizer. Returns ``(model, optimizer, lr_schedule,
+    params, decay)``."""
     train_cfg = config.train
-    if train_cfg.get("remat"):
-        # The per-unit recompute of the trunk. The JAX package also wraps
-        # the whole loss in jax.checkpoint, which changes no number; the
-        # port does not copy it.
-        config.model.base_network.remat = True
     model = get_model_fn(config.model.type)(config, dtype=model_dtype(config))
-    dataset = get_dataset_fn(config.dataset.type)(config)
-
-    run_dir = os.path.join(train_cfg.get("job_dir", "jobs/"),
-                           train_cfg.get("run_name") or "default")
-    no_log = bool(train_cfg.get("no_log"))
-    batch_iter = iter(dataset)
-    first_batch = next(batch_iter)
-    batch_size = first_batch["image"].shape[0]
-    logger.info("Training on %s, batch %d", device, batch_size)
-
     seed = int(train_cfg.get("seed") or 0)
     variables = load_pretrained_backbone(
         flatten_variables(init_variables(config, seed)), config)
@@ -346,6 +364,123 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
     params = dict(model.named_parameters())
     optimizer, lr_schedule = get_optimizer(
         train_cfg, params, trainable_mask=trainable_mask, weight_decay=decay)
+    return model, optimizer, lr_schedule, params, decay
+
+
+def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
+        environment=None, max_steps=None, device=None, backend=None):
+    """Train a model per config. Returns a :class:`TrainState`.
+
+    ``device``: a torch device (None: the current CUDA device, or every
+    visible one when there are several; there is no silent CPU fallback,
+    pass ``"cpu"`` explicitly), or a list of devices: one spawned rank
+    per device, as many as divide ``train.batch_size``, and the chief's
+    state is returned. Under the ``LUMI_COORDINATOR`` or
+    ``LUMI_DISTRIBUTED_AUTO`` environment this process joins that group as
+    one rank. ``backend`` names the ``torch.distributed`` backend (default
+    NCCL on CUDA, gloo on the CPU).
+    """
+    check_config(config)
+    if (device is None and not requested()
+            and torch.cuda.is_available() and torch.cuda.device_count() > 1):
+        device = [torch.device("cuda", i)
+                  for i in range(torch.cuda.device_count())]
+    if isinstance(device, (list, tuple)):
+        count = data_parallel_count(
+            int(config.train.get("batch_size") or 1), len(device))
+        if count > 1:
+            return _run_spawned(config, list(device)[:count], get_model_fn,
+                                get_dataset_fn, environment, max_steps,
+                                backend)
+        device = device[0]
+    if device is None:
+        device = local_device()
+    device = resolve_device(device)
+    formed = initialize_from_env(device=device, backend=backend)
+    try:
+        return _train(config, get_model_fn, get_dataset_fn, environment,
+                      max_steps, device)
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+
+def _rank_train(device, config, get_model_fn, get_dataset_fn, environment,
+                max_steps):
+    """One spawned rank of :func:`run`: train; the chief hands back its
+    state (the other ranks hold the same)."""
+    state = _train(config, get_model_fn, get_dataset_fn, environment,
+                   max_steps, device)
+    if dist.get_rank() != 0:
+        return None
+    optimizer = state.optimizer.state_dict()
+    return {
+        "step": state.step, "history": state.history,
+        "model": {k: v.cpu() for k, v in state.model.state_dict().items()},
+        "optimizer": {"count": optimizer["count"], "slots": {
+            name: {slot: v.cpu() for slot, v in slots.items()}
+            for name, slots in optimizer["slots"].items()}},
+    }
+
+
+def _run_spawned(config, devices, get_model_fn, get_dataset_fn, environment,
+                 max_steps, backend):
+    """:func:`run` over ``devices``, one spawned rank each; the chief's
+    model and optimizer are loaded on ``devices[0]`` here."""
+    devices = [torch.device(d) for d in devices]
+    logger.info("Training data-parallel over %d ranks: %s", len(devices),
+                ", ".join(map(str, devices)))
+    threads = None
+    if devices[0].type == "cpu":  # the ranks share the host's cores
+        threads = min(2, max(1, torch.get_num_threads() // len(devices)))
+    result = spawn_ranks(
+        _rank_train, devices, backend=backend, threads=threads,
+        args=(config, get_model_fn, get_dataset_fn, environment,
+              max_steps))[0]
+    model, optimizer, _, _, _ = build_model_and_optimizer(
+        config, get_model_fn, devices[0])
+    model.load_state_dict(result["model"])
+    optimizer.load_state_dict(result["optimizer"])
+    return TrainState(step=result["step"], model=model, optimizer=optimizer,
+                      history=result["history"])
+
+
+def _train(config, get_model_fn, get_dataset_fn, environment, max_steps,
+           device):
+    """The training loop on ``device``, as one rank of the process group
+    when there is one."""
+    train_cfg = config.train
+    if train_cfg.get("remat"):
+        # The per-unit recompute of the trunk. The JAX package also wraps
+        # the whole loss in jax.checkpoint, which changes no number; the
+        # port does not copy it.
+        config.model.base_network.remat = True
+    rank, world_size = world()
+    chief = rank == 0
+    dataset_config = config
+    if world_size > 1 and train_cfg.get("seed") is None:
+        # Unseeded, each rank would shuffle from its own entropy and read
+        # other batches: the ranks share the chief's draw instead.
+        dataset_config = copy.deepcopy(config)
+        dataset_config.train.seed = shared_seed(device)
+    dataset = get_dataset_fn(config.dataset.type)(dataset_config)
+    group = dist.group.WORLD if world_size > 1 else None
+
+    run_dir = os.path.join(train_cfg.get("job_dir", "jobs/"),
+                           train_cfg.get("run_name") or "default")
+    no_log = bool(train_cfg.get("no_log"))
+    batch_iter = iter(dataset)
+    first_batch = next(batch_iter)
+    batch_size = first_batch["image"].shape[0]
+    if batch_size % world_size:
+        raise ValueError(f"a global batch of {batch_size} does not split "
+                         f"over {world_size} ranks")
+    logger.info("Training on %s, batch %d (rank %d of %d)", device,
+                batch_size, rank, world_size)
+
+    seed = int(train_cfg.get("seed") or 0)
+    model, optimizer, lr_schedule, params, decay = (
+        build_model_and_optimizer(config, get_model_fn, device))
 
     step = 0
 
@@ -354,7 +489,7 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
                 "optimizer": optimizer.state_dict()}
 
     manager = None
-    if not no_log:
+    if not no_log and chief:
         manager = CheckpointManager(
             os.path.join(run_dir, "ckpt"),
             max_to_keep=int(train_cfg.get("checkpoints_max_keep", 1)),
@@ -368,9 +503,11 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
             optimizer.load_state_dict(restored["optimizer"])
             step = int(restored["step"])
             logger.info("Resumed from step %d", step)
+    if world_size > 1:
+        step = sync_state_from_chief(model, optimizer, step)
 
     writer = None
-    if not no_log:
+    if not no_log and chief:
         os.makedirs(run_dir, exist_ok=True)
         writer = SummaryWriter(run_dir)
 
@@ -378,6 +515,7 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
         model, optimizer,
         reg_fn=lambda: l2_regularization_loss(params, decay).to(device),
         debug_nans=bool(train_cfg.get("tf_debug")),
+        group=group,
     )
 
     vis_hook = var_hook = None
@@ -399,7 +537,7 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
             every_steps=train_cfg.get("display_every_steps"),
         )
 
-    if not no_log:
+    if not no_log and chief:
         try:
             save_run(config, environment=environment)
         except Exception:
@@ -418,13 +556,15 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
         yield from batch_iter
 
     trace = None
-    if train_cfg.get("full_trace") or train_cfg.get("save_timeline"):
+    if chief and (train_cfg.get("full_trace")
+                  or train_cfg.get("save_timeline")):
         trace = _start_trace(os.path.join(run_dir, "profile"), device)
         trace_stop_step = step + TRACE_STEPS
 
     try:
         staged = prefetch_to_device(
-            (b for b in batches() if b["image"].shape[0] == batch_size),
+            (shard_batch(b, rank, world_size) if world_size > 1 else b
+             for b in batches() if b["image"].shape[0] == batch_size),
             device,
         )
         for batch, device_batch in staged:

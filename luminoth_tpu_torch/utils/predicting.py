@@ -16,8 +16,13 @@ With ``model.base_network.int8_static`` (the ``fast`` profile) the int8
 activation scales are calibrated once at load, as the JAX predictor does,
 unless the variables carry the JAX package's ``int8_stats``.
 
-Not ported (they work around XLA compilation or the TPU mesh): the AOT
-executable cache, the persistent compile cache and the device mesh.
+Over several devices (the JAX package's ``mesh="auto"``), the model is
+replicated in this process on each device and a batch, rounded up to a
+multiple of the device count, is split over the replicas; their forwards
+are all launched before any output is read.
+
+Not ported (they work around XLA compilation): the AOT executable cache
+and the persistent compile cache.
 """
 
 import logging
@@ -39,6 +44,7 @@ from luminoth_tpu_torch.models.base.quantized_tail import (
     int8_modules,
     needs_calibration,
 )
+from luminoth_tpu_torch.parallel.mesh import replicate, run_replicas
 from luminoth_tpu_torch.utils.checkpoint_io import (
     CheckpointManager,
     load_model_weights,
@@ -110,7 +116,7 @@ class PredictorNetwork:
     """Loads a model and its weights on a device and predicts objects."""
 
     def __init__(self, config, variables=None, class_labels=None,
-                 device=None):
+                 device=None, devices="auto"):
         """
         Args:
             config: resolved model config (``utils.config.get_config``).
@@ -120,7 +126,19 @@ class PredictorNetwork:
                 loads the newest checkpoint under ``train.job_dir``.
             class_labels: optional label names, indexed by class id.
             device: torch device; None means the current CUDA device.
+            devices: ``"auto"`` replicates the model on every visible
+                CUDA device when there are several and ``device`` is None
+                (one device: nothing changes); a list replicates it on
+                those devices (one may repeat); None: ``device`` only.
         """
+        if devices == "auto":
+            devices = None
+            if (device is None and torch.cuda.is_available()
+                    and torch.cuda.device_count() > 1):
+                devices = [torch.device("cuda", i)
+                           for i in range(torch.cuda.device_count())]
+        if devices:
+            device = devices[0]
         self.device = resolve_device(device)
         self._config = config
         self._canvas = canvas_shape(config)
@@ -141,6 +159,9 @@ class PredictorNetwork:
             t0 = time.perf_counter()
             self._calibrate_int8()
             self.int8_calibration_s = time.perf_counter() - t0
+        # The model first, then a copy per other device (calibrated).
+        self._replicas = ([self._model] if not devices or len(devices) < 2
+                          else replicate(self._model, devices))
 
     @torch.inference_mode()
     def _calibrate_int8(self):
@@ -189,9 +210,13 @@ class PredictorNetwork:
         valid tensors (B, T, ...)."""
         if images.dtype == torch.uint8:
             images = images.float()
-        preds = self._model(images, im_shape=im_shape)
-        cp = preds["classification_prediction"]
-        return cp["objects"], cp["labels"], cp["probs"], cp["valid"]
+        def detect(model, images, im_shape):
+            cp = model(images, im_shape=im_shape)["classification_prediction"]
+            return cp["objects"], cp["labels"], cp["probs"], cp["valid"]
+
+        if len(self._replicas) == 1:
+            return detect(self._model, images, im_shape)
+        return run_replicas(self._replicas, detect, images, im_shape)
 
     def predict_image(self, image):
         """Detect objects in one RGB ndarray image (list of dicts)."""
@@ -200,8 +225,9 @@ class PredictorNetwork:
     def predict_batch(self, images, pad_to=None):
         """Detect objects in a list of images with ONE device forward.
 
-        ``pad_to`` rounds the batch up (repeating the last image). Returns
-        a list (per image) of lists of ``{bbox, label, prob}``.
+        ``pad_to`` rounds the batch up (repeating the last image), and so
+        does a multiple of the replica count. Returns a list (per image)
+        of lists of ``{bbox, label, prob}``.
         """
         n = len(images)
         if n == 0:
@@ -233,6 +259,7 @@ class PredictorNetwork:
             scales.append(result["scale_factor"])
 
         batch = n if pad_to is None else max(pad_to, n)
+        batch = -(-batch // len(self._replicas)) * len(self._replicas)
         while len(padded_images) < batch:
             padded_images.append(padded_images[-1])
             shapes.append(shapes[-1])

@@ -799,3 +799,40 @@ class TestInt8:
         assert 0 < len(objects) <= 100
         for o in objects:
             assert np.isfinite(o["bbox"]).all() and 0 <= o["label"] < 3
+
+
+class TestDataParallel:
+    """Two gloo ranks sharing ``cuda:0`` (NCCL refuses two ranks on one
+    GPU) against one process on the global batch, f32, TF32 off: the
+    setting and the tolerances of ``tests/test_torch_parallel.py``."""
+
+    def test_two_rank_step_on_the_card_equals_one_process(self, device):
+        from luminoth_tpu_torch.parallel.distributed import spawn_ranks
+        from luminoth_tpu_torch.utils.weights import init_variables
+        from torch_parallel_worker import (
+            RANK_TIMEOUT_S,
+            port_steps,
+            rank_steps,
+            step_config,
+            train_batch,
+        )
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        config = step_config()
+        variables = init_variables(config, seed=0)
+        one = port_steps(config, variables, train_batch(), device=device)
+        ranks = spawn_ranks(rank_steps, [device, device], backend="gloo",
+                            args=([(config, variables, train_batch())],),
+                            timeout=RANK_TIMEOUT_S)
+        got = [rank[0] for rank in ranks]
+        assert got[0]["metrics"] == got[1]["metrics"]
+        assert got[0]["counts"][0] != got[1]["counts"][0]
+        for metrics, want in zip(got[0]["metrics"], one["metrics"]):
+            for key, value in want.items():
+                np.testing.assert_allclose(metrics[key], value, rtol=1e-5,
+                                           err_msg=key)
+        for key, value in one["state"].items():
+            np.testing.assert_allclose(got[0]["state"][key].numpy(),
+                                       value.numpy(), rtol=1e-5, atol=1e-6,
+                                       err_msg=key)

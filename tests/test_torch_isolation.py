@@ -243,3 +243,31 @@ def test_port_test_modules_import_the_isolation_they_need():
                 assert fixture in imported, (
                     f"{os.path.basename(path)} needs {fixture}")
     assert {"test_torch_train.py", "test_torch_train_knobs.py"} <= checked
+
+
+# The port's modules that read TF checkpoints and run data-parallel: the
+# TF-free reader and converters must not reach for TensorFlow, and none
+# may load the JAX package or JAX.
+ISOLATED_MODULES = (
+    "luminoth_tpu_torch.formats.tf_checkpoint",
+    "luminoth_tpu_torch.tools.checkpoint.slim_convert",
+    "luminoth_tpu_torch.tools.checkpoint.zoo_convert",
+    "luminoth_tpu_torch.parallel",
+    "luminoth_tpu_torch.parallel.distributed",
+    "luminoth_tpu_torch.parallel.mesh",
+)
+
+
+@pytest.mark.parametrize("module", ISOLATED_MODULES)
+def test_module_imports_neither_jax_nor_tensorflow(module):
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.path.insert(0, {REPO!r})
+        importlib.import_module({module!r})
+        print(sorted(n for n in sys.modules if n.split(".")[0] in (
+            "luminoth_tpu", "jax", "jaxlib", "flax", "tensorflow")))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -496,8 +496,11 @@ class TestRun:
         drop_checkpoints(tmp_path)
 
     def test_more_than_one_device_raises(self, tmp_path):
-        cfg = self._config(tmp_path, str(tmp_path))
-        with pytest.raises(NotImplementedError):
+        """A device list trains data-parallel now
+        (``tests/test_torch_parallel.py``); the JAX package's 2-D data x
+        space mesh (``spatial_shards > 1``) still raises over one."""
+        cfg = self._config(tmp_path, str(tmp_path), spatial_shards=2)
+        with pytest.raises(NotImplementedError, match="spatial_shards"):
             trainer.run(cfg, max_steps=1, device=["cpu", "cpu"])
 
     def test_pretrained_backbone_merges_matching_paths(self, tmp_path,
