@@ -63,7 +63,13 @@ parallelism: two ranks over gloo sharing ``cuda:0``, each a process
 joined through ``LUMI_COORDINATOR``, train [train]'s workload on a global
 batch of 8 (``[ddp]``, then one step in a one-rank NCCL group); a 2-rank
 step against the 1-process step, small and f32 (``[ddp-parity]``); and
-``evaluate_once`` over ``[cuda:0, cuda:0]`` (``[dp-eval]``).
+``evaluate_once`` over ``[cuda:0, cuda:0]`` (``[dp-eval]``). The JAX
+package's space axis (``train.spatial_shards``): a space-2 step, two
+bands on two gloo ranks, against the one-process step, small and f32,
+for Faster R-CNN and SSD, with a planted halo fault that must fail
+(``[spatial-parity]``); and ``train.run`` of R101 v1 at 1216x1600 in two
+bands, the peak memory of each rank beside one process's
+(``[spatial]``).
 Every phase prints one line; any failure exits non-zero. The last three
 lines are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, ...}``.
@@ -253,6 +259,50 @@ DDP_PARITY_TOL = {
 }
 DDP_PARITY_FAULTS = {False: ("local_counts",),
                      True: ("local_counts", "local_statistics")}
+# [spatial-parity]: a space-2 step (two gloo ranks on cuda:0, one band
+# each) against the one-process step on the card, f32, TF32 off: the
+# readings of [ddp-parity] (each band's convolutions run in cuDNN
+# algorithms picked for its shape), held to [ddp-parity]'s limits, with
+# fixed statistics (Faster R-CNN, SSD) and batch statistics
+# ("fasterrcnn_bn": train_batch_norm, its moments summed over the bands).
+# Under batch statistics the moments' summation order moves the map by
+# float32 rounding, which flips the RPN's top-k and NMS choices and with
+# them the RCNN's ROIs (on the CPU: RPN losses 2.5e-6 apart, RCNN losses
+# 1-8%): that job holds what comes before those choices, the RPN losses
+# and the running statistics (which moved ones, and by how much). The
+# statistics' limit is its own: the bands' partial sums, all-reduced,
+# sum in another order than one process's (2.25e-5 read on an NVIDIA
+# H100 80GB HBM3 at 700 W, against [ddp-parity]'s 5.81e-8), so it lies between that and the
+# planted fault's reading. The planted faults must be caught:
+# "zero_halo" fills every halo row that another band holds with zeros
+# (each band a picture of its own); "local_band_statistics" normalises
+# each band by its own moments. Readings in PERF.md.
+SPATIAL_PARITY_TOL = {"fasterrcnn": DDP_PARITY_TOL[False],
+                      "ssd": DDP_PARITY_TOL[False],
+                      "fasterrcnn_bn": {
+                          "rpn_loss": DDP_PARITY_TOL[False]["loss"],
+                          "stats": 5e-4}}
+SPATIAL_PARITY_FAULTS = {"fasterrcnn": ("zero_halo",), "ssd": ("zero_halo",),
+                         "fasterrcnn_bn": ("local_band_statistics",)}
+# [spatial]: train.run of Faster R-CNN R101 v1, 80 classes, bf16, the
+# reference's proposal budget, on a canvas too large for [train]'s: two
+# bands of 608 rows on cuda:0 (gloo), against one process at that canvas.
+SPATIAL_CANVAS = (1216, 1600)
+SPATIAL_BATCH = 2
+SPATIAL_STEPS = 3
+# The first step's readings against the one process, relative: the
+# leader's gathered map (K2's input) as one vector, and the first logged
+# loss. The planted fault "zero_halo" (one step in two more processes)
+# must fail the check. The map's limit lies near the geometric mean of
+# the sound reading (bf16, cuDNN algorithms picked per band shape;
+# 9.46e-3 on an NVIDIA H100 80GB HBM3 at 700 W) and the fault's
+# (9.51e-2). The first loss
+# separates them by only 2.1x (4.72e-3 against 9.98e-3: bf16 rounding
+# moves the RPN's proposals and the RCNN's ROIs as the fault does), so
+# its limit sits 4x above the sound reading and catches gross faults
+# only. Readings in PERF.md.
+SPATIAL_TOL = {"map": 3e-2, "first_loss": 2e-2}
+SPATIAL_FAULTS = ("zero_halo",)
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(HERE, "build", "chip_smoke")
 
@@ -330,6 +380,31 @@ def k3_bound(fm, boxes, grad):
                  + boxes.numel() * 4 + fm.numel() * 4, K3_OPS * grad.numel())
 
 
+def library_grid(fm, boxes, s):
+    """The NCHW copy of ``fm`` and the ``F.grid_sample`` grid of K2's
+    crops (``align_corners``: -1 is row 0, 1 is row H-1)."""
+    import torch
+
+    b, h, w, c = fm.shape
+    r = boxes.shape[1]
+    nchw = fm.permute(0, 3, 1, 2).contiguous()
+    steps = torch.arange(s, device=fm.device, dtype=torch.float32) / (s - 1)
+    y1, x1, y2, x2 = (boxes[..., i:i + 1] for i in range(4))
+    gy = 2 * (y1 + steps * (y2 - y1)) - 1
+    gx = 2 * (x1 + steps * (x2 - x1)) - 1
+    grid = torch.stack(torch.broadcast_tensors(
+        gx[:, :, None, :], gy[:, :, :, None]), -1)
+    return nchw, grid.reshape(b, r * s, s, 2).to(fm.dtype)
+
+
+def library_crop_pool(nchw, grid):
+    import torch.nn.functional as F
+
+    return F.max_pool2d(F.grid_sample(
+        nchw, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), 2)
+
+
 def k2_library_ms(fm, boxes, s):
     """``F.grid_sample(align_corners=True)`` + ``F.max_pool2d`` at K2's
     shapes: the nearest library form, not the same function (TF zeroes a
@@ -338,26 +413,29 @@ def k2_library_ms(fm, boxes, s):
     cuDNN's grid sampler is off: it refuses a float32 output of more than
     2^31 elements (the serving shape's), PyTorch's own kernel takes it."""
     import torch
-    import torch.nn.functional as F
 
-    b, h, w, c = fm.shape
-    r = boxes.shape[1]
-    nchw = fm.permute(0, 3, 1, 2).contiguous()
-    steps = torch.arange(s, device=fm.device, dtype=torch.float32) / (s - 1)
-    y1, x1, y2, x2 = (boxes[..., i:i + 1] for i in range(4))
-    gy = 2 * (y1 + steps * (y2 - y1)) - 1  # align_corners: -1 is 0, 1 is H-1
-    gx = 2 * (x1 + steps * (x2 - x1)) - 1
-    grid = torch.stack(torch.broadcast_tensors(
-        gx[:, :, None, :], gy[:, :, :, None]), -1)
-    grid = grid.reshape(b, r * s, s, 2).to(fm.dtype)
-
-    def run():
-        return F.max_pool2d(F.grid_sample(
-            nchw, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True), 2)
-
+    nchw, grid = library_grid(fm, boxes, s)
     with torch.backends.cudnn.flags(enabled=False):
-        return cuda_ms(run, 3, warmup=1)
+        return cuda_ms(lambda: library_crop_pool(nchw, grid), 3, warmup=1)
+
+
+def k3_library_ms(fm, boxes, grad, s):
+    """The backward of :func:`k2_library_ms`'s composition at K3's shapes
+    (``torch.autograd.grad`` of the map through ``F.max_pool2d`` and
+    ``F.grid_sample``, the forward run once before the clock), with the
+    same caveat: the nearest library form, not the same function; a
+    yardstick only. ``grad`` (B, R, S/2, S/2, C) is laid out as the
+    composition's NCHW output."""
+    import torch
+
+    b, r, half, _, c = grad.shape
+    nchw, grid = library_grid(fm, boxes, s)
+    nchw.requires_grad_(True)
+    cot = grad.permute(0, 4, 1, 2, 3).reshape(b, c, r * half, half)
+    with torch.backends.cudnn.flags(enabled=False):
+        out = library_crop_pool(nchw, grid)
+        return cuda_ms(lambda: torch.autograd.grad(
+            out, nchw, cot, retain_graph=True), 3, warmup=1)
 
 
 def first_alive(alive, k):
@@ -663,8 +741,10 @@ def check_k3(device):
             fm_d, boxes, g_d, s), 2)
         k2_ms = cuda_ms(lambda: roi_align.roi_crop_pool_cuda(fm_d, boxes, s),
                         10, warmup=2)
+        library_ms = k3_library_ms(fm_d, boxes, g_d, s)
+        torch.cuda.empty_cache()
         bound_ms, bound_by = k3_bound(fm_d, boxes, g_d)
-        times[name] = (ms, plain_ms, bound_ms, bound_by)
+        times[name] = (ms, plain_ms, bound_ms, bound_by, library_ms)
         phase("k3", shape="x".join(map(str, K3_SHAPE)), dtype=name,
               a_max_abs_err=a["max_abs_err"],
               a_identity_rel_err=a["identity_rel_err"],
@@ -674,7 +754,7 @@ def check_k3(device):
               c_identity_rel_err=bc["identity_rel_err"],
               kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
               bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-              k2_forward_ms=f"{k2_ms:.4f}")
+              library_ms=f"{library_ms:.4f}", k2_forward_ms=f"{k2_ms:.4f}")
     return worst, times
 
 
@@ -4363,23 +4443,28 @@ def ddp_phase(device, card, train_numbers):
     return launches, max(r["k3_max_abs_err"] for r in ranks)
 
 
-def parity_steps(config, variables, batch, device):
+def parity_steps(config, variables, batch, device, space=1):
     """One train step of ``config`` from ``variables`` on ``batch`` (its
-    rows when this process is a rank of a group): the metrics, the moves
-    of the parameters and of the running statistics, and the masked
-    means' ``(local, global)`` denominators; tensors on the CPU."""
+    rows when this process is a rank of a group; with ``space`` > 1 the
+    rows of its data index and its band of their height): the metrics,
+    the moves of the parameters and of the running statistics, and the
+    masked means' ``(local, global)`` denominators; tensors on the CPU."""
+    import numpy as np
     import torch
     import torch.distributed as dist
     from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.models import get_model
     from luminoth_tpu_torch.models.base.resnet import set_train_batch_norm
-    from luminoth_tpu_torch.models.fasterrcnn import FasterRCNN
-    from luminoth_tpu_torch.parallel import mesh
+    from luminoth_tpu_torch.parallel import mesh, spatial
     from luminoth_tpu_torch.utils import training
     from luminoth_tpu_torch.utils.weights import load_flax_variables
 
     rank, world = mesh.world()
-    model = load_flax_variables(FasterRCNN(config), variables).to(device)
-    set_train_batch_norm(model, config.model.base_network.train_batch_norm)
+    grid = spatial.make_grid(rank, world, space) if space > 1 else None
+    model = load_flax_variables(get_model(config.model.type)(config),
+                                variables).to(device)
+    set_train_batch_norm(model, config.model.base_network.get(
+        "train_batch_norm"))
     mask = training.build_trainable_mask(model, config.model)
     for name, p in model.named_parameters():
         p.requires_grad_(mask[name])
@@ -4399,12 +4484,17 @@ def parity_steps(config, variables, batch, device):
     try:
         step = trainer.make_train_step(
             model, optimizer,
-            group=dist.group.WORLD if world > 1 else None,
+            group=dist.group.WORLD if world > 1 else None, grid=grid,
             reg_fn=lambda: training.l2_regularization_loss(params, decay))
-        rows = mesh.shard_batch(batch, rank, world)
-        metrics = step({k: torch.from_numpy(v).to(device)
-                        for k, v in rows.items()}, 0,
-                       trainer.step_generator(SEED, 0, device))
+        if grid is not None:
+            rows = mesh.shard_batch(batch, grid.data_index, grid.data)
+            rows["image"] = spatial.image_band(rows["image"],
+                                               grid.space_index, space)
+        else:
+            rows = mesh.shard_batch(batch, rank, world)
+        metrics = step({k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            device) for k, v in rows.items()}, 0,
+            trainer.step_generator(SEED, 0, device))
     finally:
         mesh.global_count = global_count
     moves = {"params": {}, "stats": {}}
@@ -4466,12 +4556,20 @@ def parity_readings(got, want):
         return torch.cat([moves.get(k, torch.zeros_like(v)).flatten()
                           for k, v in sorted(like.items())])
 
-    readings = {"loss": max(abs(got["metrics"][k] - v) / max(abs(v), 1e-12)
-                            for k, v in want["metrics"].items())}
+    def relative(keys):
+        return max(abs(got["metrics"][k] - want["metrics"][k])
+                   / max(abs(want["metrics"][k]), 1e-12) for k in keys)
+
+    readings = {"loss": relative(want["metrics"])}
+    rpn = [k for k in want["metrics"] if k.startswith("rpn_")]
+    if rpn:
+        readings["rpn_loss"] = relative(rpn)
     moves, ones = got["moves"]["params"], want["moves"]["params"]
-    readings["head"] = max(
-        float((moves.get(k, 0) - ones[k]).norm() / ones[k].norm())
-        for k in ones if k.startswith(("rpn.", "rcnn.")))
+    heads = [k for k in ones if k.startswith(("rpn.", "rcnn."))]
+    if heads:
+        readings["head"] = max(
+            float((moves.get(k, 0) - ones[k]).norm() / ones[k].norm())
+            for k in heads)
     for group in ("params", "stats"):
         ones = want["moves"][group]
         if ones:
@@ -4564,6 +4662,356 @@ def ddp_parity_phase(device):
               images="2x{}x{}".format(*KNOBS_PARITY_CANVAS), ranks=2,
               backend="gloo", **numbers,
               wall_s=f"{time.perf_counter() - t0:.1f}")
+
+
+@contextlib.contextmanager
+def planted_band_fault(fault):
+    """A fault planted in the bands' step for the block: ``"zero_halo"``
+    fills every window row that another band holds with zeros (each band
+    convolves as a picture of its own); ``"local_band_statistics"``
+    normalises each band by its own batch moments (the local statistics
+    of :func:`planted_fault`); None plants nothing."""
+    import torch
+    from luminoth_tpu_torch.parallel import spatial
+
+    if fault in (None, "local_band_statistics"):
+        with planted_fault(fault and "local_statistics"):
+            yield
+        return
+    if fault != "zero_halo":
+        raise ValueError(fault)
+    forward = spatial._Halo.forward
+
+    def zero_halo(ctx, x, plan, shard, fill):
+        gather = spatial._all_gather
+
+        def own_rows_only(tensor, length, group, size):
+            return [part if i == shard.index else torch.zeros_like(part)
+                    for i, part in enumerate(gather(tensor, length, group,
+                                                    size))]
+
+        spatial._all_gather = own_rows_only
+        try:
+            return forward(ctx, x, plan, shard, fill)
+        finally:
+            spatial._all_gather = gather
+
+    spatial._Halo.forward = staticmethod(zero_halo)
+    try:
+        yield
+    finally:
+        spatial._Halo.forward = staticmethod(forward)
+
+
+def spatial_parity_rank(device, jobs, configs, variables, batches):
+    """:func:`parity_steps` at space 2 of each ``(model, fault)`` job as a
+    spawned rank, the fault planted (TF32 off, as in the parent)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for name, fault in jobs:
+        with planted_band_fault(fault):
+            out.append(parity_steps(configs[name], variables[name],
+                                    batches[name], device, space=2))
+    return out
+
+
+def spatial_parity_phase(device):
+    """[spatial-parity]: a space-2 train step (two gloo ranks on
+    ``cuda:0``, spawned by ``parallel.distributed.spawn_ranks``, one band
+    of each image's height each, the kernels on the card in the leader)
+    against the one-process step on the same batch, f32 with TF32 off:
+    Faster R-CNN R50 at 2x128x160 (3 classes), with fixed and with batch
+    statistics, and SSD at 2x300x300 (3 classes). The planted faults of
+    ``SPATIAL_PARITY_FAULTS`` run in the
+    same ranks: the check must catch each (their readings are printed)."""
+    import numpy as np
+    from luminoth_tpu_torch.parallel.distributed import spawn_ranks
+    from luminoth_tpu_torch.utils.config import get_config
+    from luminoth_tpu_torch.utils.weights import init_variables
+
+    t0 = time.perf_counter()
+    h, w = KNOBS_PARITY_CANVAS
+    configs = {
+        name: get_config([train_config(
+            os.path.join(BUILD, f"{name}_parity.yml"), 3, "float32",
+            KNOBS_PARITY_CANVAS, {"train": {"batch_size": 2}, "model": {
+                "base_network": {"architecture": "resnet_v1_50",
+                                 "train_batch_norm": name.endswith("bn")},
+                "rpn": {"proposals": {"pre_nms_top_n": 600,
+                                      "post_nms_top_n": 64}},
+                "rcnn": {"target": {"minibatch_size": 32}}}})])
+        for name in ("fasterrcnn", "fasterrcnn_bn")}
+    configs = {"fasterrcnn": configs["fasterrcnn"],
+               "ssd": get_config([ssd_config("spatial_parity_ssd", 3,
+                                             "float32",
+                                             train={"batch_size": 2})]),
+               "fasterrcnn_bn": configs["fasterrcnn_bn"]}
+    variables = {name: init_variables(config, SEED + 71 + i)
+                 for i, (name, config) in enumerate(configs.items())}
+    rng = np.random.default_rng(SEED + 73)
+    gt = np.full((2, 4, 5), -1.0, np.float32)
+    gt[0, :3] = [[10, 12, 70, 60, 0], [50, 30, 150, 110, 2],
+                 [90, 5, 140, 50, 1]]
+    gt[1, :2] = [[5, 5, 110, 100, 1], [70, 50, 155, 120, 0]]
+    ssd_gt = gt.copy()
+    ssd_gt[..., :4] *= np.float32(1.8)  # the boxes on a 300x300 image
+    batches = {
+        "fasterrcnn": {"image": (rng.random((2, h, w, 3)) * 255).astype(
+            np.float32), "gt_boxes": gt},
+        "ssd": {"image": (rng.random((2, 300, 300, 3)) * 255).astype(
+            np.float32), "gt_boxes": ssd_gt},
+    }
+    batches["fasterrcnn_bn"] = batches["fasterrcnn"]
+    jobs = [(name, fault) for name in configs
+            for fault in (None,) + SPATIAL_PARITY_FAULTS[name]]
+    ranks = spawn_ranks(spatial_parity_rank, [device, device],
+                        backend="gloo",
+                        args=(jobs, configs, variables, batches),
+                        timeout=DDP_RANK_TIMEOUT_S)
+    ones = {name: parity_steps(configs[name], variables[name],
+                               batches[name], device) for name in configs}
+    lines = []
+    for i, (name, fault) in enumerate(jobs):
+        got = [rank[i] for rank in ranks]
+        if got[0]["metrics"] != got[1]["metrics"]:
+            raise AssertionError(f"[spatial-parity] {name} "
+                                 f"{fault or 'sound'}: the ranks' metrics "
+                                 "differ")
+        readings = parity_readings(got[0], ones[name])
+        tol = {k: v for k, v in SPATIAL_PARITY_TOL[name].items()
+               if k in readings}
+        held = [g for g in ("params", "stats") if g in tol]
+        same = [sorted(got[0]["moves"][g]) for g in held] == [
+            sorted(ones[name]["moves"][g]) for g in held]
+        caught = not same or any(readings[k] > limit
+                                 for k, limit in tol.items())
+        if fault is None and caught:
+            raise AssertionError(f"[spatial-parity] {name}: readings "
+                                 f"{readings} (tolerances {tol})")
+        if fault is not None and not caught:
+            raise AssertionError(
+                f"[spatial-parity] {name}: the planted fault {fault} "
+                f"passed, readings {readings} (tolerances {tol})")
+        line = dict(model=name, fault=fault or "none",
+                    same_tensors_moved=same)
+        line.update({f"{k}_rel_err": f"{readings[k]:.2e}" for k in tol})
+        line["tolerances"] = "/".join(f"{k}:{v:g}" for k, v in tol.items())
+        lines.append(line)
+    for numbers in lines:
+        phase("spatial-parity", dtype="float32", ranks=2, space=2,
+              backend="gloo", images="2x300x300" if numbers["model"] == "ssd"
+              else "2x{}x{}".format(*KNOBS_PARITY_CANVAS),
+              **numbers, wall_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def spatial_rank_main(rank, port, out, fault=None):
+    """One process of [spatial], started by :func:`spatial_phase` as
+    ``chip_smoke.py --spatial-rank R --port P --out F [--fault NAME]``:
+    ``train.run`` of [spatial]'s config on ``cuda:0``, as rank ``R`` of
+    the two-rank group ``LUMI_COORDINATOR`` names (gloo), or (``R`` = -1)
+    alone with ``spatial_shards: 1``; K1, K2 and K3 counted from 0 and
+    held on the process's own tensors; the peak memory; the first step's
+    map at K2 to ``out``.map.pt; the record to ``out`` as JSON. With a
+    ``fault`` (:func:`planted_band_fault`) one step runs, under its own
+    run name, and no kernel is held."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from luminoth_tpu_torch import train as trainer
+    from luminoth_tpu_torch.ops import nms, roi_align
+    from luminoth_tpu_torch.parallel.distributed import worker_env
+    from luminoth_tpu_torch.utils.config import get_config
+
+    os.environ["LUMI_HOME"] = os.path.join(BUILD, "home")
+    if rank >= 0:
+        os.environ.update(worker_env("127.0.0.1", port, 2, rank))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    nms.load_library()
+    roi_align.load_library()
+    config = get_config([os.path.join(
+        BUILD, "spatial_one.yml" if rank < 0 else
+        "spatial_fault.yml" if fault else "spatial.yml")])
+    k1s, k2s, k3s = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    with capturing_k1(k1s) as k1, capturing_k2(k2s) as k2, \
+            capturing_k3(k3s) as k3, planted_band_fault(fault):
+        state = trainer.run(config, max_steps=1 if fault else SPATIAL_STEPS,
+                            device=device,
+                            backend="gloo" if rank >= 0 else None)
+    peak = torch.cuda.max_memory_allocated()
+    record = {"rank": rank, "step": state.step, "history": state.history,
+              "launches": {"k1": k1.launches, "k2": k2.launches,
+                           "k3": k3.launches},
+              "peak_bytes": peak}
+    if k2s:
+        record["map_path"] = out + ".map.pt"
+        torch.save(k2s[0][0].cpu(), record["map_path"])
+    if k2s and not fault:
+        hold_k1(k1s, "spatial", timed=False)
+        errors = []
+        hold_k2(k2s, "spatial", errors=errors, timed=False)
+        fm, boxes, grad, s = k3s[0]
+        record.update(
+            map_rows=int(fm.shape[1]), k2_max_abs_err=max(errors),
+            k3_max_abs_err=hold_k3(fm, boxes, grad * unit_scale(grad),
+                                   s)["max_abs_err"])
+    with open(out, "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def spatial_processes(ranks, port, fault=None):
+    """Run ``chip_smoke.py --spatial-rank R`` for each of ``ranks`` at
+    once (with the planted ``fault``); their records, by rank."""
+    tag = f"_{fault}" if fault else ""
+    outs = [os.path.join(BUILD, f"spatial_rank{r}{tag}.json")
+            for r in ranks]
+    logs = [open(os.path.join(BUILD, f"spatial_rank{r}{tag}.log"), "w")
+            for r in ranks]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--spatial-rank",
+         str(r), "--port", str(port), "--out", out]
+        + (["--fault", fault] if fault else []), cwd=HERE,
+        stdout=log, stderr=subprocess.STDOUT)
+        for r, out, log in zip(ranks, outs, logs)]
+    try:
+        codes = [p.wait(timeout=DDP_RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    if any(codes):
+        tails = []
+        for r in ranks:
+            with open(os.path.join(BUILD, f"spatial_rank{r}{tag}.log")) as f:
+                tails.append(f.read()[-3000:])
+        raise AssertionError(f"[spatial] processes {ranks} exited {codes}:"
+                             "\n" + "\n".join(tails))
+    records = []
+    for out in outs:
+        with open(out) as f:
+            records.append(json.load(f))
+    return records
+
+
+def spatial_phase(device, card):
+    """[spatial]: ``train.spatial_shards: 2``, the JAX package's space
+    axis, at a canvas too large for [train]'s: Faster R-CNN R101 v1, 80
+    classes, bf16, the reference's proposal budget, a global batch of 2 at
+    1216x1600, 3 steps through ``train.run`` in two processes over gloo
+    on ``cuda:0`` joined by ``LUMI_COORDINATOR`` (one band of 608 rows
+    each: the leader runs the head, K1, K2 and K3, the other none). Both
+    log the same losses; only the chief writes the checkpoint. Then the
+    same 3 steps in one process at that canvas, and one step of the two
+    processes with each planted fault of ``SPATIAL_FAULTS``. The first
+    step's loss and leader's map are held against the one process's
+    (``SPATIAL_TOL``), and each fault must fail that check. Printed: each
+    process's peak memory and steady step ms (two processes share one
+    card here, so the ranks' step times are not two cards')."""
+    import torch
+    from luminoth_tpu_torch.parallel.distributed import free_port
+    from luminoth_tpu_torch.utils.synthetic import write_synthetic_records
+
+    import shutil
+
+    t0 = time.perf_counter()
+    jobs = os.path.join(BUILD, "jobs")
+    for name in ("spatial", "spatial_fault"):
+        shutil.rmtree(os.path.join(jobs, name), ignore_errors=True)
+    data, _ = write_synthetic_records(
+        os.path.join(BUILD, "spatial_data"), 2 * SPATIAL_BATCH, 80,
+        SEED + 81, height=SPATIAL_CANVAS[0], width=SPATIAL_CANVAS[1])
+    dataset = {"dir": data, "image_preprocessing": {
+        "canvas_height": SPATIAL_CANVAS[0],
+        "canvas_width": SPATIAL_CANVAS[1],
+        "min_size": SPATIAL_CANVAS[0], "max_size": SPATIAL_CANVAS[1]}}
+    for name, train in (("spatial", {"spatial_shards": 2}),
+                        ("spatial_fault", {"spatial_shards": 2,
+                                           "no_log": True}),
+                        ("spatial_one", {"no_log": True})):
+        train_config(os.path.join(BUILD, f"{name}.yml"), 80, "bfloat16",
+                     SPATIAL_CANVAS, {
+                         "train": {"batch_size": SPATIAL_BATCH,
+                                   "job_dir": jobs, "run_name": name,
+                                   **train},
+                         "dataset": dataset})
+    ranks = spatial_processes([0, 1], free_port())
+    one = spatial_processes([-1], 0)[0]
+    faults = {fault: spatial_processes([0, 1], free_port(), fault)[0]
+              for fault in SPATIAL_FAULTS}
+
+    def readings(leader):
+        first = one["history"][0]["total_loss"]
+        got = torch.load(leader["map_path"]).float()
+        want = torch.load(one["map_path"]).float()
+        return {"first_loss": abs(leader["history"][0]["total_loss"] - first)
+                / abs(first),
+                "map": float((got - want).norm() / want.norm())}
+
+    sound = readings(ranks[0])
+    if any(sound[k] > limit for k, limit in SPATIAL_TOL.items()):
+        raise AssertionError(f"[spatial] readings {sound} (tolerances "
+                             f"{SPATIAL_TOL})")
+    fault_readings = {fault: readings(r) for fault, r in faults.items()}
+    for fault, got in fault_readings.items():
+        if not any(got[k] > limit for k, limit in SPATIAL_TOL.items()):
+            raise AssertionError(
+                f"[spatial] the planted fault {fault} passed, readings "
+                f"{got} (tolerances {SPATIAL_TOL})")
+    logged = [[h["total_loss"] for h in r["history"]] for r in ranks]
+    if logged[0] != logged[1] or any(r["step"] != SPATIAL_STEPS
+                                     for r in ranks + [one]):
+        raise AssertionError(f"[spatial] the ranks logged {logged}")
+    steps = {k: SPATIAL_STEPS for k in ("k1", "k2", "k3")}
+    if ranks[0]["launches"] != steps or one["launches"] != steps or any(
+            ranks[1]["launches"].values()):
+        raise AssertionError(f"[spatial] launches leader "
+                             f"{ranks[0]['launches']}, other "
+                             f"{ranks[1]['launches']}, one process "
+                             f"{one['launches']}")
+    ckpts = sorted(os.listdir(os.path.join(jobs, "spatial", "ckpt")))
+    if ckpts != [f"ckpt_step_{SPATIAL_STEPS}.pt"]:
+        raise AssertionError(f"[spatial] checkpoints {ckpts}")
+
+    def steady_ms(record):
+        ms = [h["device_ms"] for h in record["history"][1:]]
+        return f"{sum(ms) / len(ms):.2f}"
+
+    phase("spatial", model="resnet_v1_101", classes=80, dtype="bfloat16",
+          canvas="{}x{}".format(*SPATIAL_CANVAS), global_batch=SPATIAL_BATCH,
+          space=2, ranks=2, backend="gloo", device="cuda:0",
+          steps=SPATIAL_STEPS, leader_map_rows=ranks[0]["map_rows"],
+          k1_launches_per_rank="/".join(
+              str(r["launches"]["k1"]) for r in ranks),
+          k2_launches_per_rank="/".join(
+              str(r["launches"]["k2"]) for r in ranks),
+          k3_launches_per_rank="/".join(
+              str(r["launches"]["k3"]) for r in ranks),
+          k2_max_abs_err=ranks[0]["k2_max_abs_err"],
+          k3_max_abs_err=ranks[0]["k3_max_abs_err"],
+          peak_gib_per_rank="/".join(f"{r['peak_bytes'] / 2**30:.2f}"
+                                     for r in ranks),
+          one_process_peak_gib=f"{one['peak_bytes'] / 2**30:.2f}",
+          steady_step_ms_per_rank="/".join(steady_ms(r) for r in ranks),
+          one_process_steady_step_ms=steady_ms(one),
+          losses="/".join(f"{v:.4f}" for v in logged[0]),
+          **{f"{k}_rel_err": f"{v:.2e}" for k, v in sound.items()},
+          **{f"{fault}_{k}_rel_err": f"{v:.2e}"
+             for fault, got in fault_readings.items()
+             for k, v in got.items()},
+          tolerances="/".join(f"{k}:{v:g}" for k, v in SPATIAL_TOL.items()),
+          chief_only_writes=True,
+          wall_s=f"{time.perf_counter() - t0:.1f}", card=f"'{card}'")
+    return ranks[0]["launches"], max(ranks[0]["k2_max_abs_err"],
+                                     one["k2_max_abs_err"]), max(
+        ranks[0]["k3_max_abs_err"], one["k3_max_abs_err"])
 
 
 def dp_eval_phase(model, config, device, card):
@@ -4794,6 +5242,10 @@ def main():
     paths["ddp"], ddp_k3_err = ddp_phase(device, card, train_numbers)
     ddp_parity_phase(device)
     torch.cuda.empty_cache()
+    spatial_parity_phase(device)
+    torch.cuda.empty_cache()
+    paths["spatial"], spatial_k2_err, spatial_k3_err = spatial_phase(
+        device, card)
     paths["eval"], eval_model, eval_config = eval_phase(device, card)
     paths["eval_files"] = eval_files_phase(eval_model, eval_config)
     paths["dp_eval"] = dp_eval_phase(eval_model, eval_config, device, card)
@@ -4829,7 +5281,8 @@ def main():
     rpn_ms, rpn_plain_ms, rpn_bound_ms, rpn_bound_by = k1_times[(8, 12000)]
     k2_shapes = [*k2_backbones, *(k2 for k2, _ in pretrained.values())]
     k3_shapes = [k3 for _, k3 in pretrained.values()]
-    k3_ms, k3_plain_ms, k3_bound_ms, k3_bound_by = k3_times["bfloat16"]
+    k3_ms, k3_plain_ms, k3_bound_ms, k3_bound_by, k3_library = k3_times[
+        "bfloat16"]
     def by_path(kernel):
         # Only the paths whose run counted this kernel's launches.
         return {name: counts[kernel] for name, counts in paths.items()
@@ -4856,7 +5309,8 @@ def main():
          "launches": sum(by_path("k2").values()),
          "launches_by_path": by_path("k2"),
          "max_abs_err": max([k2_err, fast_k2["max_abs_err"],
-                             dataset_k2_err, knobs_k2_err, detector_k2_err]
+                             dataset_k2_err, knobs_k2_err, detector_k2_err,
+                             spatial_k2_err]
                             + [x["max_abs_err"] for x in k2_shapes]), **k2,
          "shapes": [{"rois": K2_SHAPE[1], "channels": K2_SHAPE[4],
                      "on": "random boxes", "max_abs_err": k2_err, **k2},
@@ -4867,15 +5321,16 @@ def main():
          "launches": sum(by_path("k3").values()),
          "launches_by_path": by_path("k3"),
          "max_abs_err": max([k3_err, dataset_k3_err, slim_k3_err,
-                             ddp_k3_err]
+                             ddp_k3_err, spatial_k3_err]
                             + [x["max_abs_err"] for x in k3_shapes]),
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound_ms, "bound_by": k3_bound_by,
-         "library_ms": None,
+         "library_ms": k3_library,
          "shapes": [{"rois": K3_SHAPE[1], "channels": K3_SHAPE[4],
                      "on": "random boxes", "max_abs_err": k3_err,
                      "ms": k3_ms, "plain_ms": k3_plain_ms,
-                     "bound_ms": k3_bound_ms, "bound_by": k3_bound_by},
+                     "bound_ms": k3_bound_ms, "bound_by": k3_bound_by,
+                     "library_ms": k3_library},
                     *k3_shapes]},
     ]}))
     print(card)
@@ -4891,4 +5346,9 @@ if __name__ == "__main__":
         options = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         sys.exit(ddp_rank_main(int(options["--ddp-rank"]),
                                int(options["--port"]), options["--out"]))
+    if "--spatial-rank" in sys.argv:  # a process of [spatial]
+        options = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        sys.exit(spatial_rank_main(int(options["--spatial-rank"]),
+                                   int(options["--port"]), options["--out"],
+                                   options.get("--fault")))
     sys.exit(main())

@@ -355,9 +355,9 @@ class Int8BottleneckV1(Int8Points, BottleneckV1):
         self._setup_int8(("in_amax", "conv1_amax", "conv2_amax"),
                          static_scales)
 
-    def forward(self, x):
-        if self.training:
-            return super().forward(x)
+    def forward(self, x, height=None):
+        if self.training:  # the float unit (on a band under a grid)
+            return super().forward(x, height)
         return self.int8_forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
     def _weights(self, name):

@@ -24,6 +24,13 @@ Two training knobs of the JAX package: ``BatchNorm.train_batch_norm``
 the module is in training) and ``ResNet.remat`` (recompute each
 bottleneck in the backward pass instead of keeping its activations, the
 JAX ``nn.remat`` per unit).
+
+Under a spatial grid (``parallel/spatial.py``, ``train.spatial_shards``)
+the trunk runs on this rank's band of the image's height: every layer
+with a spatial extent (the padded convs, the root pool, the strided
+shortcuts) takes the rows its band's outputs read from the other bands,
+the batch statistics are summed over every band, and the map is gathered
+on the leader at the endpoint.
 """
 
 import contextvars
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from luminoth_tpu_torch.parallel import mesh, spatial
 from luminoth_tpu_torch.parallel.mesh import batch_moments
 
 # (base_depth, num_units, stride) per block; stride applies to the LAST unit.
@@ -53,11 +61,22 @@ _UPDATE_RUNNING_STATS = contextvars.ContextVar("update_running_stats",
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in the input's dtype from float32 params."""
+    """``nn.Conv2d`` computing in the input's dtype from float32 params.
 
-    def forward(self, x):
+    ``pad`` (an ``F.pad`` tuple) pads the input first; ``height`` (the
+    input's global height) runs the conv on this rank's band."""
+
+    def forward(self, x, height=None, pad=None):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        weight = self.weight.to(x.dtype)
+        if height is None:
+            if pad is not None:
+                x = F.pad(x, pad)
+            return self._conv_forward(x, weight, bias)
+        if pad is None:
+            pad = (self.padding[1],) * 2 + (self.padding[0],) * 2
+        return spatial.conv2d(x, height, weight, bias, self.stride[0],
+                              self.dilation[0], pad)
 
 
 class BatchNorm(nn.Module):
@@ -112,18 +131,22 @@ def set_train_batch_norm(module, enabled):
             m.train_batch_norm = bool(enabled)
 
 
-def remat_unit(unit, x):
-    """``unit(x)`` whose activations are recomputed in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant). The recompute runs with
-    the running-statistics update off, so a batch-statistics
-    :class:`BatchNorm` moves its running statistics once."""
+def remat_unit(unit, x, height=None):
+    """``unit(x, height)`` whose activations are recomputed in the backward
+    pass (``torch.utils.checkpoint``, non-reentrant). The recompute runs
+    with the running-statistics update off, so a batch-statistics
+    :class:`BatchNorm` moves its running statistics once, and under the
+    forward's batch shard and band, so it repeats the forward's
+    collectives."""
     calls = []
+    shard, band = mesh.current_shard(), spatial.current()
 
     def run(inputs):
         token = _UPDATE_RUNNING_STATS.set(not calls)
         calls.append(None)
         try:
-            return unit(inputs)
+            with mesh.use_shard(shard), spatial.restored(band):
+                return unit(inputs, height)
         finally:
             _UPDATE_RUNNING_STATS.reset(token)
 
@@ -173,19 +196,26 @@ class BottleneckV1(nn.Module):
         self.conv3 = Conv2d(depth_bottleneck, depth, 1, bias=False)
         self.conv3_bn = BatchNorm(depth)
 
-    def forward(self, x):
+    def forward(self, x, height=None):
+        """NCHW ``x`` → NCHW; ``height``: ``x`` is a band of a map of that
+        global height."""
         if self.project:
-            shortcut = self.shortcut_bn(self.shortcut(x))
+            shortcut = self.shortcut_bn(self.shortcut(x, height))
         else:
             # slim's 1x1 VALID max-pool subsample.
-            shortcut = x[:, :, ::self.stride, ::self.stride]
+            shortcut = spatial.subsample(x, height, self.stride)
 
-        residual = torch.relu(self.conv1_bn(self.conv1(x)))
-        if self.conv2_pad is not None:
-            residual = F.pad(residual, self.conv2_pad)
-        residual = torch.relu(self.conv2_bn(self.conv2(residual)))
-        residual = self.conv3_bn(self.conv3(residual))
+        residual = torch.relu(self.conv1_bn(self.conv1(x, height)))
+        residual = torch.relu(self.conv2_bn(
+            self.conv2(residual, height, pad=self.conv2_pad)))
+        residual = self.conv3_bn(self.conv3(residual,
+                                            self.out_height(height)))
         return torch.relu(shortcut + residual)
+
+    def out_height(self, height):
+        """The global height of the output of an input ``height`` rows
+        high (None: no band)."""
+        return spatial.out_height(height, 1, self.stride)
 
 
 class BottleneckV2(nn.Module):
@@ -210,18 +240,19 @@ class BottleneckV2(nn.Module):
         self.conv2_bn = BatchNorm(depth_bottleneck)
         self.conv3 = Conv2d(depth_bottleneck, depth, 1, bias=True)
 
-    def forward(self, x):
+    def forward(self, x, height=None):
         preact = torch.relu(self.preact(x))
         if self.project:
-            shortcut = self.shortcut(preact)
+            shortcut = self.shortcut(preact, height)
         else:
-            shortcut = x[:, :, ::self.stride, ::self.stride]
+            shortcut = spatial.subsample(x, height, self.stride)
 
-        residual = torch.relu(self.conv1_bn(self.conv1(preact)))
-        if self.conv2_pad is not None:
-            residual = F.pad(residual, self.conv2_pad)
-        residual = torch.relu(self.conv2_bn(self.conv2(residual)))
-        return shortcut + self.conv3(residual)
+        residual = torch.relu(self.conv1_bn(self.conv1(preact, height)))
+        residual = torch.relu(self.conv2_bn(
+            self.conv2(residual, height, pad=self.conv2_pad)))
+        return shortcut + self.conv3(residual, self.out_height(height))
+
+    out_height = BottleneckV1.out_height
 
 
 UNITS = {1: BottleneckV1, 2: BottleneckV2}
@@ -313,21 +344,40 @@ class ResNet(nn.Module):
         self.out_channels = depth_in
 
     def forward(self, x):
-        x = self.conv1(F.pad(x, self.conv1_pad))
+        """NCHW images → the endpoint's NCHW map. Under a spatial grid
+        ``x`` is this rank's band and the map comes out on the leader
+        (``parallel/spatial.gather``)."""
+        band = spatial.current()
+        if band is None:
+            return self._trunk(x, None)[0]
+        with spatial.band_statistics():
+            x, height = self._trunk(x, band.image_height(x.shape[2]))
+        return spatial.gather(x, height)
+
+    def _trunk(self, x, height):
+        """The trunk on ``x`` (a band of global ``height``, or None: the
+        whole map); returns the output and its global height."""
+        x = self.conv1(x, height, pad=self.conv1_pad)
+        height = spatial.out_height(height, 7, 2, self.conv1_pad[2:])
         if self.version == 1:
             x = torch.relu(self.conv1_bn(x))
-        x = root_pool(x, self.stride_first)
+        x = root_pool(x, self.stride_first, height)
+        height = spatial.out_height(height, 3, 2,
+                                    (1, 1) if self.stride_first else (0, 0))
         remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.block_names:
             for unit in getattr(self, name).values():
-                x = remat_unit(unit, x) if remat else unit(x)
-        return x
+                x = remat_unit(unit, x, height) if remat else unit(x, height)
+                height = unit.out_height(height)
+        return x, height
 
 
-def root_pool(x, stride_first=False):
+def root_pool(x, stride_first=False, height=None):
     """The root 3x3/2 max-pool: slim's is VALID (no padding); torchvision's
-    (``stride_first``) pads 1 with -inf."""
-    return F.max_pool2d(x, 3, stride=2, padding=1 if stride_first else 0)
+    (``stride_first``) pads 1 with -inf. ``height``: ``x`` is a band of a
+    map of that global height."""
+    return spatial.max_pool2d(x, height, 3, 2, padding=1 if stride_first
+                              else 0)
 
 
 class ResNetTail(nn.Module):

@@ -16,6 +16,12 @@ Modules are NCHW and run on ``torch.channels_last`` tensors. Parameters
 stay float32 and are cast to the input's dtype, as in ``resnet.py``.
 Module names follow the flax paths: the flax module ``conv1/conv1_1`` is
 ``conv1.conv1_1`` here, which ``utils/weights.torch_key`` maps back.
+
+Under a spatial grid (``parallel/spatial.py``) the convs and pools up to
+``gather_at`` run on this rank's band of the height, their ``SAME``
+padding computed from the global height; the map is gathered on the
+leader there (Faster R-CNN's endpoint, SSD's first head map ``conv4_3``),
+and only the leader goes on.
 """
 
 import torch
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from luminoth_tpu_torch.models.base.resnet import Conv2d
+from luminoth_tpu_torch.parallel import spatial
 
 _STAGES = ((2, 64, "conv1"), (2, 128, "conv2"), (3, 256, "conv3"),
            (3, 512, "conv4"), (3, 512, "conv5"))
@@ -43,7 +50,8 @@ class TFConv2d(Conv2d):
     ``SAME`` padding is computed at each call from the input's size; an
     asymmetric pad (an odd total, as at stride 2 on an even map) goes
     through ``F.pad``, a symmetric one through the conv itself. ``VALID``
-    does not pad.
+    does not pad. ``height``: ``x`` is a band of a map of that global
+    height.
     """
 
     def __init__(self, in_channels, features, kernel_size, stride=1,
@@ -54,7 +62,16 @@ class TFConv2d(Conv2d):
             raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
         self.tf_padding = padding
 
-    def forward(self, x):
+    def forward(self, x, height=None):
+        if height is not None:
+            pads = [(0, 0), (0, 0)]
+            if self.tf_padding == "SAME":
+                pads = [same_padding(size, self.kernel_size[i],
+                                     self.stride[i], self.dilation[i])
+                        for i, size in enumerate((height, x.shape[3]))]
+            return spatial.conv2d(
+                x, height, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                self.stride[0], self.dilation[0], pads[1] + pads[0])
         pad = (0, 0)
         if self.tf_padding == "SAME":
             (top, bottom), (left, right) = (
@@ -88,6 +105,8 @@ class VGG16(nn.Module):
                                  f"one of {sorted(names)}")
             convs = convs[:names.index(endpoint) + 1]
         self.endpoint = endpoint
+        # Where a spatial grid gathers the bands (SSD sets conv4_3).
+        self.gather_at = names[len(convs) - 1]
         self.full = not truncated and endpoint is None
         in_channels = 3
         for stage, name, features in convs:
@@ -109,14 +128,21 @@ class VGG16(nn.Module):
         endpoints are named as in the JAX package (``conv4/conv4_3``,
         ``pool1``, ..., ``fc7``, ``output``)."""
         endpoints = {}
+        band = spatial.current()
+        height = None if band is None else band.image_height(x.shape[2])
         for _, _, stage in _STAGES:  # the endpoint returns in its stage
             for name, conv in getattr(self, stage).items():
-                x = torch.relu(conv(x))
+                x = torch.relu(conv(x, height))
+                if height is not None and f"{stage}/{name}" == self.gather_at:
+                    x, height = spatial.gather(x, height), None
+                    if not band.is_leader:
+                        return x, {}
                 endpoints[f"{stage}/{name}"] = x
             if f"{stage}/{name}" == self.endpoint:
                 return x, endpoints
             if stage != "conv5":
-                x = F.max_pool2d(x, 2, stride=2)  # VALID: floor
+                x = spatial.max_pool2d(x, height, 2, 2)  # VALID: floor
+                height = spatial.out_height(height, 2, 2)
                 endpoints[f"pool{stage[-1]}"] = x
         if self.full:
             x = F.max_pool2d(x, 2, stride=2)

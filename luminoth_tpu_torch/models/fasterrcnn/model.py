@@ -11,6 +11,11 @@ With ``gt_boxes`` the RPN and RCNN targets are assigned, and in training
 RCNN minibatch only and no detections are made. :meth:`FasterRCNN.loss` is
 the 4-part loss. Target subsampling draws from an explicit
 ``torch.Generator`` (or takes injected ``priorities``).
+
+Under a spatial grid (``parallel/spatial.py``) ``images`` is this rank's
+band of the height: the trunk runs on the band and only the leader, which
+gathers the map, runs the rest on the whole image; another rank returns
+``{"follower": its gathered band}``, whose loss is zero.
 """
 
 import numpy as np
@@ -40,6 +45,7 @@ from luminoth_tpu_torch.ops.anchors import (
 )
 from luminoth_tpu_torch.ops.losses import smooth_l1_loss, softmax_cross_entropy
 from luminoth_tpu_torch.ops.roi_align import roi_crop_pool_batch
+from luminoth_tpu_torch.parallel import spatial
 from luminoth_tpu_torch.parallel.mesh import masked_mean
 from luminoth_tpu_torch.utils.config import Config
 
@@ -62,6 +68,11 @@ class FasterRCNN(nn.Module):
         self.dtype = dtype
         self.num_classes = int(model_cfg.network.num_classes)
         self.with_rcnn = bool(model_cfg.network.with_rcnn)
+        # The keys of loss(return_all=True), in order (a spatial grid's
+        # follower reports zeros under them).
+        self.loss_names = ("rpn_cls_loss", "rpn_reg_loss") + (
+            ("rcnn_cls_loss", "rcnn_reg_loss") if self.with_rcnn else ()) + (
+            "total_loss", "no_reg_loss")
 
         anchors_cfg = model_cfg.anchors
         self.anchor_reference = generate_anchors_reference(
@@ -129,6 +140,8 @@ class FasterRCNN(nn.Module):
         """
         model_cfg = self.cfg.model
         batch, full_h, full_w = images.shape[0], images.shape[1], images.shape[2]
+        if spatial.current() is not None:  # a band: the canvas's height
+            full_h = spatial.current().image_height(full_h)
         if im_shape is None:
             im_shape = torch.tensor(
                 [[full_h, full_w]], dtype=torch.float32, device=images.device
@@ -136,6 +149,8 @@ class FasterRCNN(nn.Module):
         im_shape = im_shape.float()
 
         feature_map = self.base_network(images)
+        if spatial.is_follower():
+            return {"follower": feature_map}
         all_anchors = generate_anchors_grid(
             self.anchor_reference, model_cfg.anchors.stride,
             feature_map.shape[1:3], device=images.device,
@@ -282,6 +297,9 @@ class FasterRCNN(nn.Module):
         adds the L2 term to ``total_loss``).
         """
         cfg = self.cfg
+        if "follower" in prediction_dict:
+            return spatial.follower_losses(
+                self.loss_names, prediction_dict["follower"], return_all)
         loss_cfg = cfg.model.loss
         rpn_pred = prediction_dict["rpn_prediction"]
 
@@ -333,5 +351,5 @@ class FasterRCNN(nn.Module):
         if return_all:
             losses["total_loss"] = total
             losses["no_reg_loss"] = total
-            return losses
+            return {name: losses[name] for name in self.loss_names}
         return total

@@ -16,6 +16,11 @@ int8 twin outside training: ``quantized_extractor.Int8VGG16`` and int8
 extras (quant points ``conv6_amax`` .. ``conv11_2_amax`` on this module),
 conv4_3's normalisation in float32, every map cast to the model's dtype at
 the end. In training the float path runs.
+
+Under a spatial grid (``parallel/spatial.py``) the trunk runs in bands up
+to ``conv4_3``, the first head map, where the leader gathers them; the
+rest (``conv5``, the dilated ``fc6``/``fc7`` and the extras) runs on the
+leader, and the other ranks return their gathered band alone.
 """
 
 import torch
@@ -28,6 +33,7 @@ from luminoth_tpu_torch.models.ssd.quantized_extractor import (
     Int8VGG16,
     _nhwc_pool,
 )
+from luminoth_tpu_torch.parallel import spatial
 
 # (name, input channels, features, kernel, stride, dilation, padding); a
 # feature map is taken after each of conv7 .. conv11_2.
@@ -79,6 +85,7 @@ class SSDFeatureExtractor(Int8Points, nn.Module):
         static = self.int8 and bool(config.get("int8_static"))
         self.vgg_16 = (Int8VGG16(static) if self.int8
                        else VGG16(truncated=True))
+        self.vgg_16.gather_at = "conv4/conv4_3"
         self._setup_int8([f"{name}_amax" for name, *_ in _EXTRAS]
                          if self.int8 else [], static)
         self.conv4_3_norm = L2Normalize(512)
@@ -90,10 +97,13 @@ class SSDFeatureExtractor(Int8Points, nn.Module):
 
     def forward(self, x):
         """NCHW mean-subtracted images in the compute dtype → the list of
-        six NCHW feature maps."""
+        six NCHW feature maps (a follower of a spatial grid: its gathered
+        band alone)."""
         if self.int8 and not self.training:
             return self._int8_maps(x)
-        _, endpoints = self.vgg_16(x)
+        band, endpoints = self.vgg_16(x)
+        if spatial.is_follower():
+            return [band]
         feature_maps = [self.conv4_3_norm(endpoints["conv4/conv4_3"])]
         net = F.max_pool2d(endpoints["conv5/conv5_3"], 3, stride=1,
                            padding=1)

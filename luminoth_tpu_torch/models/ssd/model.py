@@ -11,6 +11,11 @@ for :meth:`SSD.loss`. Outside training (``model.eval()``, the JAX
 ``train=False``) the detections are made by ``ssd_proposal``, whose grouped
 NMS is kernel K1 on CUDA; in training no proposal is made and no kernel
 runs. Returns the JAX model's prediction keys.
+
+Under a spatial grid (``parallel/spatial.py``) ``images`` is this rank's
+band: the extractor gathers the map at ``conv4_3`` on the leader, which
+runs the rest; another rank returns ``{"follower": its gathered band}``,
+whose loss is zero.
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ from luminoth_tpu_torch.models.ssd.feature_extractor import SSDFeatureExtractor
 from luminoth_tpu_torch.models.ssd.proposal import ssd_proposal
 from luminoth_tpu_torch.models.ssd.target import ssd_target_assign
 from luminoth_tpu_torch.ops.losses import smooth_l1_loss, softmax_cross_entropy
+from luminoth_tpu_torch.parallel import spatial
 from luminoth_tpu_torch.parallel.mesh import batch_mean
 from luminoth_tpu_torch.utils.config import Config
 
@@ -47,6 +53,10 @@ def feature_map_shapes(height, width):
 
 class SSD(nn.Module):
     """Single-shot detector over a truncated VGG-16."""
+
+    # The keys of loss(return_all=True), in order (a spatial grid's
+    # follower reports zeros under them).
+    loss_names = ("total_loss", "cls_loss", "bbox_loss")
 
     def __init__(self, config, dtype=torch.float32):
         super().__init__()
@@ -105,6 +115,8 @@ class SSD(nn.Module):
         x = subtract_channel_means(images).permute(0, 3, 1, 2)
         x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
         feature_maps = self.feature_extractor(x)
+        if spatial.is_follower():
+            return {"follower": feature_maps[0]}
 
         offsets, scores = [], []
         for i, fm in enumerate(feature_maps):
@@ -167,6 +179,9 @@ class SSD(nn.Module):
         over the batch; ``return_all`` adds the batch means of the two
         sums.
         """
+        if "follower" in prediction_dict:
+            return spatial.follower_losses(
+                self.loss_names, prediction_dict["follower"], return_all)
         num_classes = self.num_classes
         loc_weight = self.cfg.model.loss.localization_loss_weight
 
@@ -194,9 +209,6 @@ class SSD(nn.Module):
         )
         total_loss = batch_mean(per_image)
         if return_all:
-            return {
-                "total_loss": total_loss,
-                "cls_loss": batch_mean(cls_loss),
-                "bbox_loss": batch_mean(bbox_loss),
-            }
+            return dict(zip(self.loss_names, (
+                total_loss, batch_mean(cls_loss), batch_mean(bbox_loss))))
         return total_loss

@@ -15,6 +15,11 @@ is one process per GPU in a ``torch.distributed`` group. Two ways in:
 The backend is NCCL for CUDA devices and gloo for the CPU, unless the
 caller names it (gloo also reduces CUDA tensors, which lets two ranks
 share one GPU, which NCCL refuses).
+
+Either way the group holds every rank; with ``train.spatial_shards: N``
+``train.run`` lays the JAX package's ``(data, space)`` grid over it
+(``parallel/spatial.make_grid``: rank ``r`` is band ``r % N`` of row block
+``r // N``), so a launcher starts ``data x N`` processes.
 """
 
 import os

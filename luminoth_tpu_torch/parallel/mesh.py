@@ -16,15 +16,17 @@ explicitly, inside :func:`batch_shard`:
   all-reduce, no gradient), so the ranks' losses sum to the global loss
   and their gradients are summed, not averaged;
 * **batch-statistics batch norm** (:func:`batch_moments`): the sums of x
-  and x² are all-reduced, with a backward that all-reduces their
-  gradients.
+  and x² and the counts are all-reduced (the ranks may hold unequal
+  shares: the bands of ``parallel/spatial.py``), with a backward that
+  all-reduces the sums' gradients.
 
 Outside :func:`batch_shard` (one process) every function computes what the
 model computed before, operation for operation. Eval and serving replicate
 the model over devices in one process instead (:func:`replicate`,
 :func:`run_replicas`); there only the draws take the shard, and losses
-are computed on the gathered predictions. The 2-D ``(data, space)`` mesh of
-the JAX package is not ported.
+are computed on the gathered predictions. The JAX package's 2-D ``(data,
+space)`` mesh is ``parallel/spatial.py``: the head runs on one rank per
+image, under a :func:`batch_shard` of those ranks.
 """
 
 import contextlib
@@ -53,10 +55,22 @@ def batch_shard(rank, world, group=None):
     """Run the body as row block ``rank`` of ``world`` of the global batch;
     with ``group``, loss counts and batch statistics are all-reduced over
     it. Yields the :class:`BatchShard`."""
-    global _SHARD
-    previous, _SHARD = _SHARD, BatchShard(int(rank), int(world), group)
-    try:
+    with use_shard(BatchShard(int(rank), int(world), group)):
         yield _SHARD
+
+
+def current_shard():
+    """The active :class:`BatchShard` (to re-enter it in a recompute)."""
+    return _SHARD
+
+
+@contextlib.contextmanager
+def use_shard(shard):
+    """Run the body under ``shard`` (a :class:`BatchShard`)."""
+    global _SHARD
+    previous, _SHARD = _SHARD, shard
+    try:
+        yield
     finally:
         _SHARD = previous
 
@@ -170,15 +184,17 @@ class _AllReduceSum(torch.autograd.Function):
 
 def batch_moments(x, dim):
     """``(E[x], E[x²])`` over ``dim`` of float32 ``x``, over the global
-    batch: the sums of the ranks are all-reduced (differentiably), so the
-    ranks normalise alike and move their running statistics alike. A
-    recompute (``remat``) all-reduces the same sums again."""
+    batch: the sums of the ranks and their counts (exact in float32 below
+    2^24 elements a channel) are all-reduced, the sums differentiably, so
+    the ranks normalise alike and move their running statistics alike.
+    A recompute (``remat``) all-reduces the same sums again."""
     if not _reduced():
         return x.mean(dim=dim), x.square().mean(dim=dim)
-    count = x.numel() // x.shape[1] * _SHARD.world
+    count = x.new_full((1,), x.numel() // x.shape[1])
     sums = _AllReduceSum.apply(
-        torch.cat([x.sum(dim=dim), x.square().sum(dim=dim)]), _SHARD.group)
-    mean, mean_sq = (sums / count).chunk(2)
+        torch.cat([x.sum(dim=dim), x.square().sum(dim=dim), count]),
+        _SHARD.group)
+    mean, mean_sq = (sums[:-1] / sums[-1]).chunk(2)
     return mean, mean_sq
 
 

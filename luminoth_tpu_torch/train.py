@@ -43,11 +43,19 @@ default every visible CUDA device), or from the ``LUMI_COORDINATOR``/
 ``LUMI_DISTRIBUTED_AUTO`` environment of a launcher that starts the ranks
 itself (``parallel/distributed.py``).
 
-Not ported (raises ``NotImplementedError``): ``train.spatial_shards > 1``,
-the JAX package's 2-D (data, space) mesh.
+``train.spatial_shards: N`` (``parallel/spatial.py``) is the JAX
+package's 2-D ``(data, space)`` mesh: the ranks form a grid of ``data x
+N``, rank ``r`` training band ``r % N`` of the height of row block ``r //
+N`` of the global batch. Each band runs the trunk with halo exchanges; the
+band's first rank (the leader) gathers the map and runs the head and the
+loss; the gradients are summed over every rank. ``data`` is the largest
+count, at most ``ranks / N``, that divides the batch (a device list that
+``N`` does not divide, or a canvas height that ``N`` does not divide,
+raises ``ValueError``, as in the JAX package).
 """
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import logging
@@ -64,6 +72,7 @@ import torch.distributed as dist
 from luminoth_tpu_torch.datasets import get_dataset
 from luminoth_tpu_torch.models import get_model
 from luminoth_tpu_torch.formats.tfevents import SummaryWriter
+from luminoth_tpu_torch.parallel import spatial
 from luminoth_tpu_torch.parallel.distributed import (
     initialize_from_env,
     local_device,
@@ -113,12 +122,24 @@ class TrainState:
     history: list
 
 
-def check_config(config):
-    """Raise ``NotImplementedError`` for ``train.spatial_shards > 1`` (the
-    2-D data x space mesh), which is not ported."""
-    if int(config.train.get("spatial_shards") or 1) > 1:
-        raise NotImplementedError(
-            "train.spatial_shards > 1 (the data x space mesh) is not ported")
+def spatial_shards(config):
+    """``train.spatial_shards`` (1 when unset); ``ValueError`` below 1."""
+    space = int(config.train.get("spatial_shards") or 1)
+    if space < 1:
+        raise ValueError(f"train.spatial_shards must be at least 1, got "
+                         f"{space}")
+    return space
+
+
+def check_canvas(config, space):
+    """``ValueError`` unless every canvas height of the dataset splits in
+    ``space`` bands."""
+    from luminoth_tpu_torch.datasets.object_detection_dataset import (
+        canvas_buckets,
+    )
+
+    for height, _ in canvas_buckets(config):
+        spatial.split_height(height, space)
 
 
 def step_generator(seed, step, device):
@@ -177,7 +198,7 @@ def watch_outputs(model, step_of):
 
 
 def make_train_step(model, optimizer, reg_fn=None, debug_nans=False,
-                    group=None):
+                    group=None, grid=None):
     """The train step over the parameters of ``model`` that require grad.
 
     Returns ``train_step(batch, step, generator, priorities=None) ->
@@ -193,6 +214,13 @@ def make_train_step(model, optimizer, reg_fn=None, debug_nans=False,
     before its update at the first non-finite module output
     (:func:`watch_outputs`, whose hooks ``train_step.debug_hooks`` holds),
     loss or gradient (:func:`check_finite`).
+
+    With a spatial ``grid`` (a ``parallel/spatial.Grid`` laid over
+    ``group``; its space and leaders' groups are made here, by every
+    rank), ``batch["image"]`` is this rank's band of its rows: the forward
+    runs under the band, the batch statistics sum over every rank, the
+    leaders' loss counts and draws are those of the data axis, and the
+    gradients and losses are summed over ``group`` (every rank).
     """
     params = {name: p for name, p in model.named_parameters()
               if p.requires_grad}
@@ -200,6 +228,18 @@ def make_train_step(model, optimizer, reg_fn=None, debug_nans=False,
     rank, world_size = ((dist.get_rank(group), dist.get_world_size(group))
                         if group is not None else (0, 1))
     group = group if world_size > 1 else None
+    band = contextlib.nullcontext
+    if grid is not None and grid.space > 1:
+        space_group, leaders, leader = spatial.grid_groups(grid, group)
+        rank, world_size = grid.data_index, grid.data
+        shard_group = leaders if grid.is_leader and grid.data > 1 else None
+
+        def band():
+            return spatial.space_shard(grid.space_index, grid.space,
+                                       space_group, leader,
+                                       statistics=group)
+    else:
+        shard_group = group
 
     def train_step(batch, step, generator, priorities=None):
         current[0] = step + 1
@@ -207,14 +247,16 @@ def make_train_step(model, optimizer, reg_fn=None, debug_nans=False,
         if images.dtype == torch.uint8:
             images = images.float()  # the uint8 transfer path
         model.train()
-        with batch_shard(rank, world_size, group):
+        with batch_shard(rank, world_size, shard_group), band():
             preds = model(images, gt_boxes=batch["gt_boxes"],
                           im_shape=batch.get("im_shape"),
                           generator=generator, priorities=priorities)
             losses = model.loss(preds, return_all=True)
-            grads = torch.autograd.grad(losses["total_loss"],
-                                        list(params.values()),
-                                        allow_unused=True)
+            grads = (None,) * len(params)
+            if losses["total_loss"].requires_grad:
+                grads = torch.autograd.grad(losses["total_loss"],
+                                            list(params.values()),
+                                            allow_unused=True)
         grads = {
             name: torch.zeros_like(p) if g is None else g
             for (name, p), g in zip(params.items(), grads)
@@ -378,13 +420,24 @@ def run(config, get_model_fn=get_model, get_dataset_fn=get_dataset,
     state is returned. Under the ``LUMI_COORDINATOR`` or
     ``LUMI_DISTRIBUTED_AUTO`` environment this process joins that group as
     one rank. ``backend`` names the ``torch.distributed`` backend (default
-    NCCL on CUDA, gloo on the CPU).
+    NCCL on CUDA, gloo on the CPU). With ``train.spatial_shards: N`` the
+    ranks form a ``data x N`` grid (``N`` must divide the device count and
+    every canvas height, else ``ValueError``).
     """
-    check_config(config)
+    space = spatial_shards(config)
     if (device is None and not requested()
             and torch.cuda.is_available() and torch.cuda.device_count() > 1):
         device = [torch.device("cuda", i)
                   for i in range(torch.cuda.device_count())]
+    if space > 1 and not requested() and not dist.is_initialized():
+        devices = list(device) if isinstance(device, (list, tuple)) else [
+            device]
+        grid = spatial.make_grid(0, len(devices), space)
+        check_canvas(config, space)
+        data = data_parallel_count(int(config.train.get("batch_size") or 1),
+                                   grid.data)
+        return _run_spawned(config, devices[:data * space], get_model_fn,
+                            get_dataset_fn, environment, max_steps, backend)
     if isinstance(device, (list, tuple)):
         count = data_parallel_count(
             int(config.train.get("batch_size") or 1), len(device))
@@ -465,6 +518,9 @@ def _train(config, get_model_fn, get_dataset_fn, environment, max_steps,
         dataset_config.train.seed = shared_seed(device)
     dataset = get_dataset_fn(config.dataset.type)(dataset_config)
     group = dist.group.WORLD if world_size > 1 else None
+    space = spatial_shards(config)
+    grid = spatial.make_grid(rank, world_size, space) if space > 1 else None
+    rows = (grid.data_index, grid.data) if grid else (rank, world_size)
 
     run_dir = os.path.join(train_cfg.get("job_dir", "jobs/"),
                            train_cfg.get("run_name") or "default")
@@ -472,11 +528,17 @@ def _train(config, get_model_fn, get_dataset_fn, environment, max_steps,
     batch_iter = iter(dataset)
     first_batch = next(batch_iter)
     batch_size = first_batch["image"].shape[0]
-    if batch_size % world_size:
+    if batch_size % rows[1]:
         raise ValueError(f"a global batch of {batch_size} does not split "
-                         f"over {world_size} ranks")
-    logger.info("Training on %s, batch %d (rank %d of %d)", device,
-                batch_size, rank, world_size)
+                         f"over {rows[1]} ranks")
+    if grid is not None:
+        spatial.split_height(first_batch["image"].shape[1], space)
+        logger.info("Training on %s, batch %d (rank %d of %d: %d data x %d "
+                    "space)", device, batch_size, rank, world_size,
+                    grid.data, space)
+    else:
+        logger.info("Training on %s, batch %d (rank %d of %d)", device,
+                    batch_size, rank, world_size)
 
     seed = int(train_cfg.get("seed") or 0)
     model, optimizer, lr_schedule, params, decay = (
@@ -515,7 +577,7 @@ def _train(config, get_model_fn, get_dataset_fn, environment, max_steps,
         model, optimizer,
         reg_fn=lambda: l2_regularization_loss(params, decay).to(device),
         debug_nans=bool(train_cfg.get("tf_debug")),
-        group=group,
+        group=group, grid=grid,
     )
 
     vis_hook = var_hook = None
@@ -561,10 +623,21 @@ def _train(config, get_model_fn, get_dataset_fn, environment, max_steps,
         trace = _start_trace(os.path.join(run_dir, "profile"), device)
         trace_stop_step = step + TRACE_STEPS
 
+    def local(batch):
+        """This rank's rows (and band) of a global batch; a band keeps its
+        rows' whole images for the monitor forward."""
+        if rows[1] > 1:
+            batch = shard_batch(batch, *rows)
+        if grid is not None:
+            batch = dict(batch, whole_image=batch["image"],
+                         image=spatial.image_band(batch["image"],
+                                                  grid.space_index, space))
+        return batch
+
     try:
         staged = prefetch_to_device(
-            (shard_batch(b, rank, world_size) if world_size > 1 else b
-             for b in batches() if b["image"].shape[0] == batch_size),
+            (local(b) for b in batches()
+             if b["image"].shape[0] == batch_size),
             device,
         )
         for batch, device_batch in staged:
@@ -613,6 +686,9 @@ def _train(config, get_model_fn, get_dataset_fn, environment, max_steps,
                 last_save = time.time()
 
             if vis_hook is not None and vis_hook.should_trigger(step):
+                if grid is not None:  # the chief's rows, whole
+                    batch = dict(batch, image=batch.pop("whole_image"))
+                    device_batch = _device_batch(batch, device)
                 vis_hook.after_step(step, batch,
                                     monitor_forward(model, device_batch))
             if var_hook is not None:

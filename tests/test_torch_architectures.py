@@ -63,7 +63,11 @@ from luminoth_tpu_torch.utils.weights import (
 from test_torch_backbone import assert_rel_close, randomize_bn, rpn_config
 from test_torch_eval import rescaled_jax_variables
 from test_torch_int8 import bn_statistics, single_tap
-from test_torch_isolation import jax_cache_isolation  # noqa: F401
+from test_torch_isolation import (  # noqa: F401
+    default_threads,
+    few_threads,
+    jax_cache_isolation,
+)
 from test_torch_slice import BOX_ATOL, PROB_ATOL
 from test_torch_train import (
     LOSS_RTOL,
@@ -425,7 +429,10 @@ def vgg_train():
     return config, variables, batch, results
 
 
-def test_vgg16_train_steps_match_jax(vgg_train):
+def test_vgg16_train_steps_match_jax(vgg_train, default_threads):
+    """Torch's own thread count (``default_threads``): at 1, 2 and 4
+    threads the gradient norm lands 1.1e-5 to 2.6e-5 off JAX's, past the
+    step test's 1e-5."""
     config, variables, batch, results = vgg_train
     model = load_flax_variables(FasterRCNN(config), variables)
     mask = training.build_trainable_mask(model, config.model)

@@ -33,6 +33,7 @@ from luminoth_tpu_torch.models.base.resnet import (
 from luminoth_tpu_torch.models.fasterrcnn.rcnn import RCNNHead
 from luminoth_tpu_torch.models.fasterrcnn.rpn import RPN
 from luminoth_tpu_torch.utils import weights
+from test_torch_isolation import few_threads  # noqa: F401
 
 REL_TOL = 1e-5
 

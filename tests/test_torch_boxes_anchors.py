@@ -11,6 +11,7 @@ from luminoth_tpu.ops import losses as jax_losses
 from luminoth_tpu_torch.ops import anchors as torch_anchors
 from luminoth_tpu_torch.ops import boxes as torch_boxes
 from luminoth_tpu_torch.ops import losses as torch_losses
+from test_torch_isolation import few_threads  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-4  # px
 

@@ -48,7 +48,7 @@ from luminoth_tpu_torch.utils.synthetic import (
     write_annotation_tree,
 )
 from luminoth_tpu_torch.version import __version__
-from test_torch_isolation import lumi_home_isolation  # noqa: F401
+from test_torch_isolation import few_threads, lumi_home_isolation  # noqa: F401
 
 CLASSES = ["bird", "cat", "dog"]
 IMAGES = 4  # 48x64 JPEGs, 1-4 boxes each; image 1 grayscale

@@ -44,7 +44,7 @@ from luminoth_tpu_torch.utils.config import get_config
 from luminoth_tpu_torch.utils.synthetic import write_synthetic_records
 from luminoth_tpu_torch.utils.weights import load_flax_variables
 from test_torch_slice import assert_detections_equal
-from test_torch_isolation import jax_cache_isolation  # noqa: F401
+from test_torch_isolation import few_threads, jax_cache_isolation  # noqa: F401
 from test_torch_targets import jax_priorities
 
 AP_ATOL = 1e-6

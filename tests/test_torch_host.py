@@ -39,6 +39,7 @@ from luminoth_tpu_torch.formats import tfrecord
 from luminoth_tpu_torch.ops import np_boxes
 from luminoth_tpu_torch.utils import config
 from luminoth_tpu_torch.utils import image
+from test_torch_isolation import few_threads  # noqa: F401
 
 PACKAGES = {
     "jax": {"pb": jax_pb, "tfrecord": jax_tfrecord},

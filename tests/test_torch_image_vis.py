@@ -65,7 +65,7 @@ from test_image_vis import (  # noqa: F401  (fixtures)
     ssd_pred,
 )
 from test_torch_eval import BATCH, IMAGES, eval_configs, write_config
-from test_torch_isolation import jax_cache_isolation  # noqa: F401
+from test_torch_isolation import few_threads, jax_cache_isolation  # noqa: F401
 from test_torch_ssd import GT as SSD_GT
 from test_torch_ssd import small_config as ssd_config
 from test_torch_train import OVERRIDES, train_batch

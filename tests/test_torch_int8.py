@@ -64,6 +64,7 @@ from luminoth_tpu_torch.utils.weights import (
 )
 from test_torch_eval import CONFIG, rescaled_jax_variables
 from test_torch_isolation import (  # noqa: F401
+    few_threads,
     jax_cache_isolation,
     lumi_home_isolation,
 )
@@ -421,14 +422,32 @@ def exact_ssd_float_stage(flat, rng):
     return flat
 
 
-def extractor_case(static, exact=True):
+@pytest.fixture(scope="module")
+def ssd_extractor_init():
+    """The float JAX extractor's init at 300x300 (flat numpy variables)
+    and its variables' shapes, once for the module; and one jitted apply
+    of the dynamic int8 extractor, whose compile the tests that run it
+    share."""
+    images = np.zeros((1, 300, 300, 3), np.float32)
+    init = JaxExtractor(Config({})).init(jax.random.PRNGKey(3), images)
+    return {"flat": flatten_variables(jax.tree_util.tree_map(np.asarray,
+                                                            init)),
+            "shapes": jax.tree_util.tree_map(
+                lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), init),
+            "apply": jax.jit(JaxExtractor(Config({
+                "architecture": "truncated_vgg_16", "int8_trunk": True,
+                "int8_static": False})).apply)}
+
+
+def extractor_case(static, init, exact=True):
+    """JAX's int8 extractor, its variables, the port's extractor and the
+    image, from ``init`` (``ssd_extractor_init``: the float init, whose
+    values do not depend on the image's)."""
     rng = np.random.RandomState(5)
     cfg = Config({"architecture": "truncated_vgg_16", "int8_trunk": True,
                   "int8_static": static})
     images = (rng.rand(1, 300, 300, 3) * 255 - 120).astype(np.float32)
-    flat = flatten_variables(jax.tree_util.tree_map(
-        np.asarray, JaxExtractor(Config({})).init(
-            jax.random.PRNGKey(3), images)))
+    flat = {k: v.copy() for k, v in init["flat"].items()}
     for key in flat:  # biases off zero
         if key.endswith("/bias"):
             flat[key] = (rng.randn(*flat[key].shape) * 0.1).astype(
@@ -436,19 +455,19 @@ def extractor_case(static, exact=True):
     if exact:
         exact_ssd_float_stage(flat, rng)
     extractor = load_flax_variables(SSDFeatureExtractor(cfg), flat).eval()
-    shapes = jax.eval_shape(lambda: JaxExtractor(Config({})).init(
-        jax.random.PRNGKey(3), images))
     variables = jax.tree_util.tree_map_with_path(
-        lambda path, _: flat["/".join(str(k.key) for k in path)], shapes)
+        lambda path, _: flat["/".join(str(k.key) for k in path)],
+        init["shapes"])
     return JaxExtractor(cfg), variables, extractor, images
 
 
 class TestSSDMaps:
     @pytest.mark.parametrize("static", [False, True])
-    def test_maps_match_jax(self, static):
+    def test_maps_match_jax(self, static, ssd_extractor_init):
         """All six maps (37, 18, 9, 5, 3 and 1 on a side) bitwise; conv4_3
         normalised in float32; calibrated maxima equal JAX's."""
-        jax_ex, variables, extractor, images = extractor_case(static)
+        jax_ex, variables, extractor, images = extractor_case(
+            static, ssd_extractor_init)
         nchw = torch.from_numpy(images).permute(0, 3, 1, 2)
         if static:
             want, stats = calibrate_jax(jax_ex, variables, images)
@@ -458,7 +477,7 @@ class TestSSDMaps:
             assert len(want_stats) == 19
             assert port_stats(extractor) == want_stats
         else:
-            want = jax.jit(jax_ex.apply)(variables, images)
+            want = ssd_extractor_init["apply"](variables, images)
             with torch.inference_mode():
                 got = extractor(nchw)
         assert [g.shape[-1] for g in got] == [37, 18, 9, 5, 3, 1]
@@ -468,12 +487,13 @@ class TestSSDMaps:
         for g, w in zip(got[1:], want[1:]):
             np.testing.assert_array_equal(nhwc(g), np.asarray(w))
 
-    def test_random_float_stage_tracks_jax(self):
+    def test_random_float_stage_tracks_jax(self, ssd_extractor_init):
         """Random conv1/conv2: the float stage's summation order flips a
         few codes, and 13 int8 layers carry the flips on; every map within
         ``SSD_MAP_RTOL`` of its largest magnitude."""
-        jax_ex, variables, extractor, images = extractor_case(False, False)
-        want = jax.jit(jax_ex.apply)(variables, images)
+        jax_ex, variables, extractor, images = extractor_case(
+            False, ssd_extractor_init, exact=False)
+        want = ssd_extractor_init["apply"](variables, images)
         with torch.inference_mode():
             got = extractor(torch.from_numpy(images).permute(0, 3, 1, 2))
         for g, w in zip(got, want):

@@ -37,7 +37,7 @@ from test_torch_int8 import (
     int8_stats,
     port_stats,
 )
-from test_torch_isolation import jax_cache_isolation  # noqa: F401
+from test_torch_isolation import few_threads, jax_cache_isolation  # noqa: F401
 from test_torch_serve import image_files, multipart
 from test_torch_ssd import jax_variables as ssd_jax_variables
 from test_torch_ssd import predictor_images, small_config as ssd_config

@@ -24,7 +24,15 @@ evaluator or the JAX ``predict`` command imports :func:`jax_cache_isolation`,
 a module-scoped autouse fixture, so the module's JAX references compute
 through plain ``jax.jit``.
 
-Both fixtures also give the module's memory back when the module ends
+Every port test module also imports :func:`few_threads`, which holds torch
+to two intra-op threads in the module's process and in the processes it
+starts (``OMP_NUM_THREADS``): under ``-n 6`` six workers share the
+machine's cores, and a full thread pool per worker spins against the
+others. On an 8-core CPU one ``train.run`` step of Faster R-CNN R50 at
+2 x 96 x 128 took ~62 s in each of six such processes at once, and ~7 s
+with two threads each.
+
+Both cache fixtures also give the module's memory back when the module ends
 (:func:`release_memory`): an xdist worker runs many modules in one
 process, and the heap their JAX references and models freed stayed
 resident, so the six workers of a full ``-n 6`` run held ~36 GB between
@@ -37,14 +45,18 @@ import contextlib
 import ctypes
 import gc
 import os
+import re
 import subprocess
 import sys
 import textwrap
 
 import jax
 import pytest
+import torch
 
 THRESHOLD = "jax_persistent_cache_min_compile_time_secs"
+THREADS = 2
+DEFAULT_THREADS = torch.get_num_threads()  # torch's own count, at import
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)
 
@@ -76,6 +88,29 @@ def isolated_jax_caches():
         finally:
             jax.config.update(THRESHOLD, previous)
             release_memory()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """``THREADS`` intra-op threads for the module, here and (through
+    ``OMP_NUM_THREADS``) in the ranks and commands it starts; the previous
+    count comes back after."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(THREADS)
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setenv("OMP_NUM_THREADS", str(THREADS))
+        yield
+    torch.set_num_threads(previous)
+
+
+@pytest.fixture
+def default_threads():
+    """Torch's own thread count for one test whose float32 sums hold
+    their bound only in the order that count gives."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(DEFAULT_THREADS)
+    yield
+    torch.set_num_threads(previous)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -228,7 +263,6 @@ def test_port_test_modules_import_the_isolation_they_need():
     that runs the JAX ``train.run``, evaluator, predictor or ``predict``
     command imports ``jax_cache_isolation``."""
     import glob
-    import re
 
     checked = set()
     for path in sorted(glob.glob(os.path.join(TESTS, "test_torch_*.py"))):
@@ -243,6 +277,24 @@ def test_port_test_modules_import_the_isolation_they_need():
                 assert fixture in imported, (
                     f"{os.path.basename(path)} needs {fixture}")
     assert {"test_torch_train.py", "test_torch_train_knobs.py"} <= checked
+
+
+def test_port_test_modules_hold_few_threads():
+    """Every ``tests/test_torch_*.py`` that runs on the CPU imports
+    ``few_threads`` (the card's kernel tests run alone); here it holds."""
+    import glob
+
+    for path in sorted(glob.glob(os.path.join(TESTS, "test_torch_*.py"))):
+        name = os.path.basename(path)
+        if name in ("test_torch_cuda.py", "test_torch_isolation.py"):
+            continue
+        with open(path) as f:
+            imports = re.findall(
+                r"from test_torch_isolation import (\([^)]*\)|[^\n]*)",
+                f.read())
+        assert "few_threads" in re.findall(r"\w+", " ".join(imports)), name
+    assert torch.get_num_threads() == THREADS
+    assert os.environ["OMP_NUM_THREADS"] == str(THREADS)
 
 
 # The port's modules that read TF checkpoints and run data-parallel: the

@@ -15,6 +15,7 @@ from luminoth_tpu.ops import nms as jax_nms
 from luminoth_tpu.ops.np_boxes import nms as np_nms
 from luminoth_tpu.ops.pallas.nms_kernel import nms_alive_pallas
 from luminoth_tpu_torch.ops import nms as torch_nms
+from test_torch_isolation import few_threads  # noqa: F401
 
 
 def random_groups(rng, g, n, spread=80.0, tie_levels=None):

@@ -63,7 +63,7 @@ from luminoth_tpu_torch.utils.weights import (
     init_variables,
     load_flax_variables,
 )
-from test_torch_isolation import lumi_home_isolation  # noqa: F401
+from test_torch_isolation import few_threads, lumi_home_isolation  # noqa: F401
 from torch_parallel_worker import (
     RANK_TIMEOUT_S,
     checksum,
@@ -85,16 +85,6 @@ HEAD_MOVE_RTOL, ALL_MOVES_RTOL = 1e-2, 0.2
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)
 RANK_THREADS = 1
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads here, one per spawned rank: under ``-n 6``
-    six workers share the machine's cores."""
-    previous = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(previous)
 
 
 def _relative(got, want):
@@ -264,8 +254,14 @@ def test_spawned_training_sets_no_join_deadline(tmp_path, monkeypatch):
 
 
 def test_spatial_shards_still_raise_with_a_device_list(tmp_path):
+    """Two devices form a data 1 x space 2 grid
+    (``tests/test_torch_spatial.py``), but not over a canvas height that 2
+    does not divide: ``ValueError`` before any rank starts, as the JAX
+    package's ``device_put`` raises."""
     config = _run_config(tmp_path, spatial_shards=2)
-    with pytest.raises(NotImplementedError):
+    config.dataset.image_preprocessing.update(
+        {"canvas_height": None, "fixed_height": 97, "fixed_width": 128})
+    with pytest.raises(ValueError, match="canvas height of 97"):
         trainer.run(config, max_steps=1, device=["cpu", "cpu"])
 
 

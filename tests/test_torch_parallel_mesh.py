@@ -14,7 +14,9 @@ test: losses and gradient norm to 1e-5 relative, parameters to atol 1e-6
 both), those of ``tests/test_torch_train_knobs.py``, whose docstring says
 why batch statistics cannot hold the step test's: losses and gradient
 norm to 5e-3 relative, each head parameter's move to 1e-2, all moves
-together to 0.2, and each running statistic's move to 1e-2.
+together to 0.2, and each running statistic's move to 1e-2. The
+``train_batch_norm`` case is in ``tests/test_torch_parallel_mesh_bn.py``
+(one module each, so that ``--dist loadfile`` runs them side by side).
 """
 
 import jax
@@ -33,7 +35,7 @@ from luminoth_tpu_torch.utils.weights import (
     nest_variables,
     torch_state_from_flax,
 )
-from test_torch_isolation import jax_cache_isolation  # noqa: F401
+from test_torch_isolation import few_threads, jax_cache_isolation  # noqa: F401
 from test_torch_train import (
     LOSS_RTOL,
     PARAM_ATOL,
@@ -55,26 +57,38 @@ from torch_parallel_worker import (
     train_batch,
 )
 
-FLAGS = (False, True)
+FLAGS = (False,)  # tests/test_torch_parallel_mesh_bn.py: True
+
+
+def mesh_setting(flags):
+    """The configs of ``flags``, the global batch and the variables."""
+    batch = train_batch()
+    configs = {flag: step_config(flag) for flag in flags}
+    plain = step_config(False)
+    variables = rescaled_variables(plain, batch, init=nest_variables(
+        flatten_variables(init_variables(plain, seed=0))))
+    return configs, batch, variables
+
+
+def spawn_port_ranks(setting):
+    """Two steps of each setting's config in one pair of spawned ranks;
+    the chief's results by flag."""
+    configs, batch, variables = setting
+    ranks = spawn_ranks(
+        rank_steps, ["cpu", "cpu"], threads=1,
+        args=([(config, variables, batch) for config in configs.values()],
+              port_priorities(2, 576, 32)), timeout=RANK_TIMEOUT_S)
+    return dict(zip(configs, ranks[0]))
 
 
 @pytest.fixture(scope="module")
 def setting():
-    batch = train_batch()
-    configs = {flag: step_config(flag) for flag in FLAGS}
-    variables = rescaled_variables(configs[False], batch, init=nest_variables(
-        flatten_variables(init_variables(configs[False], seed=0))))
-    return configs, batch, variables
+    return mesh_setting(FLAGS)
 
 
 @pytest.fixture(scope="module")
 def port_ranks(setting):
-    configs, batch, variables = setting
-    ranks = spawn_ranks(
-        rank_steps, ["cpu", "cpu"], threads=1,
-        args=([(configs[flag], variables, batch) for flag in FLAGS],
-              port_priorities(2, 576, 32)), timeout=RANK_TIMEOUT_S)
-    return {flag: ranks[0][i] for i, flag in enumerate(FLAGS)}
+    return spawn_port_ranks(setting)
 
 
 def jax_mesh_steps(config, batch, variables, train_batch_norm):
@@ -112,6 +126,12 @@ def _relative(got, want):
 
 @pytest.mark.parametrize("train_batch_norm", FLAGS)
 def test_two_ranks_match_the_jax_mesh(setting, port_ranks, train_batch_norm):
+    check_against_the_jax_mesh(setting, port_ranks, train_batch_norm)
+
+
+def check_against_the_jax_mesh(setting, port_ranks, train_batch_norm):
+    """The chief's two steps against the JAX mesh's, at the tolerances of
+    the module docstring."""
     configs, batch, variables = setting
     config = configs[train_batch_norm]
     want = jax_mesh_steps(config, batch, variables, train_batch_norm)

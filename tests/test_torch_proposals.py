@@ -24,6 +24,7 @@ from luminoth_tpu.ops.anchors import (
 )
 from luminoth_tpu_torch.models.fasterrcnn.rcnn_proposal import rcnn_proposal
 from luminoth_tpu_torch.models.fasterrcnn.rpn_proposal import rpn_proposal
+from test_torch_isolation import few_threads  # noqa: F401
 
 BOX_ATOL = 1e-4
 IM_SHAPE = np.asarray([[90.0, 120.0], [96.0, 128.0]], np.float32)

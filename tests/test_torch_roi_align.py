@@ -14,6 +14,7 @@ import torch
 from luminoth_tpu.ops import roi_align as jax_roi
 from luminoth_tpu.ops.pallas.roi_align_kernel import roi_align_pallas
 from luminoth_tpu_torch.ops import roi_align as torch_roi
+from test_torch_isolation import few_threads  # noqa: F401
 
 ATOL = 1e-5
 

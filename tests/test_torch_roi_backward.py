@@ -16,6 +16,7 @@ import torch
 from luminoth_tpu.ops import roi_align as jax_roi
 from luminoth_tpu.ops.pallas.roi_align_kernel import _roi_align_bwd_pallas
 from luminoth_tpu_torch.ops import roi_align as torch_roi
+from test_torch_isolation import few_threads  # noqa: F401
 
 ATOL, RTOL = 2e-4, 1e-3
 

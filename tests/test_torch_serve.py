@@ -42,7 +42,7 @@ from luminoth_tpu_torch.utils.serving import (
     apply_serving_profile,
 )
 from test_torch_eval import STEP, small  # noqa: F401 (a fixture)
-from test_torch_isolation import jax_cache_isolation  # noqa: F401
+from test_torch_isolation import few_threads, jax_cache_isolation  # noqa: F401
 
 BOX_ATOL = 1e-2  # px
 PROB_ATOL = 1e-4 + 1e-5  # the outputs round probabilities to 4 decimals

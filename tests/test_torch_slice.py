@@ -41,7 +41,7 @@ from luminoth_tpu_torch.utils.weights import (
     init_variables,
     load_flax_variables,
 )
-from test_torch_isolation import jax_cache_isolation  # noqa: F401
+from test_torch_isolation import few_threads, jax_cache_isolation  # noqa: F401
 
 BOX_ATOL = 1e-2  # px
 PROB_ATOL = 1e-5

@@ -45,7 +45,7 @@ from luminoth_tpu_torch.utils.weights import (
     init_variables,
     load_flax_variables,
 )
-from test_torch_isolation import jax_cache_isolation  # noqa: F401
+from test_torch_isolation import few_threads, jax_cache_isolation  # noqa: F401
 
 MAP_ATOL = 1e-4
 BOX_ATOL = 1e-3  # px, the model's detections

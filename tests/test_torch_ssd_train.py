@@ -58,6 +58,7 @@ from luminoth_tpu_torch.utils.weights import (
 )
 from test_torch_eval import assert_metrics_equal
 from test_torch_isolation import (  # noqa: F401
+    few_threads,
     jax_cache_isolation,
     lumi_home_isolation,
 )

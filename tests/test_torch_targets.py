@@ -31,6 +31,7 @@ from luminoth_tpu_torch.models.fasterrcnn.rcnn_target import (
 )
 from luminoth_tpu_torch.models.fasterrcnn.rpn_target import rpn_target_assign
 from luminoth_tpu_torch.ops.select import top_k_mask
+from test_torch_isolation import few_threads  # noqa: F401
 
 TARGET_TOL = 1e-6
 

@@ -54,7 +54,10 @@ from test_slim_conversion import (  # noqa: E402
     make_slim_resnet_values,
     make_slim_vgg_values,
 )
-from test_torch_isolation import jax_cache_isolation  # noqa: E402,F401
+from test_torch_isolation import (  # noqa: E402,F401
+    few_threads,
+    jax_cache_isolation,
+)
 from test_zoo_conversion import (  # noqa: E402
     build_frcnn_ref_values,
     build_ssd_ref_values,

@@ -41,7 +41,7 @@ from luminoth_tpu_torch.utils.weights import (
     load_flax_variables,
     torch_state_from_flax,
 )
-from test_torch_isolation import lumi_home_isolation  # noqa: F401
+from test_torch_isolation import few_threads, lumi_home_isolation  # noqa: F401
 
 LOSS_RTOL = 1e-5
 PARAM_RTOL, PARAM_ATOL = 1e-5, 1e-6
@@ -421,15 +421,17 @@ class TestRun:
         {"tf_debug": True}, {"remat": True}, {"ignore_scope": "rpn"},
     ])
     def test_unported_knobs_raise(self, tmp_path, knob, monkeypatch):
-        """More than one device still raises; each other knob of the JAX
-        package runs one CPU step and takes effect."""
+        """``spatial_shards: 2`` over one device raises ``ValueError`` (a
+        device count it does not divide, as in the JAX package;
+        ``tests/test_torch_spatial.py`` trains over two); each other knob
+        of the JAX package runs one CPU step and takes effect."""
         data_dir = str(tmp_path)
         if "spatial_shards" not in knob:
             data_dir = write_records(tmp_path)
         cfg = self._config(tmp_path, data_dir, **knob)
         run_dir = tmp_path / "jobs" / "r"
         if "spatial_shards" in knob:
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(ValueError, match="device count"):
                 trainer.run(cfg, max_steps=1, device="cpu")
         elif "tf_debug" in knob:
             poisoned = np.zeros((7, 7, 3, 64), np.float32)
@@ -496,12 +498,14 @@ class TestRun:
         drop_checkpoints(tmp_path)
 
     def test_more_than_one_device_raises(self, tmp_path):
-        """A device list trains data-parallel now
-        (``tests/test_torch_parallel.py``); the JAX package's 2-D data x
-        space mesh (``spatial_shards > 1``) still raises over one."""
+        """A device list trains data-parallel
+        (``tests/test_torch_parallel.py``) and over the JAX package's 2-D
+        data x space mesh (``tests/test_torch_spatial.py``); a device
+        count that ``spatial_shards`` does not divide raises
+        ``ValueError``, as in the JAX package."""
         cfg = self._config(tmp_path, str(tmp_path), spatial_shards=2)
-        with pytest.raises(NotImplementedError, match="spatial_shards"):
-            trainer.run(cfg, max_steps=1, device=["cpu", "cpu"])
+        with pytest.raises(ValueError, match="spatial_shards=2"):
+            trainer.run(cfg, max_steps=1, device=["cpu", "cpu", "cpu"])
 
     def test_pretrained_backbone_merges_matching_paths(self, tmp_path,
                                                        config):

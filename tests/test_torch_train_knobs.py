@@ -77,6 +77,7 @@ from luminoth_tpu_torch.utils.weights import (
     torch_state_from_flax,
 )
 from test_torch_isolation import (  # noqa: F401
+    few_threads,
     jax_cache_isolation,
     lumi_home_isolation,
 )
@@ -97,18 +98,6 @@ KNOBS_LOSS_RTOL = 5e-3
 STATS_MOVE_RTOL = 1e-2
 HEAD_MOVE_RTOL, ALL_MOVES_RTOL = 1e-2, 0.2
 KNOBS = {"train_batch_norm": True, "remat": True}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for the module: under ``-n 6`` six workers
-    share the machine's cores, and a full thread pool per worker spins
-    against the others (this module's steps ran 5-20x slower in such a
-    run than alone)."""
-    previous = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(previous)
 
 
 def knob_config(**base_network):

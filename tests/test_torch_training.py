@@ -31,6 +31,7 @@ from luminoth_tpu_torch.utils.weights import (
     load_flax_variables,
     torch_state_from_flax,
 )
+from test_torch_isolation import few_threads  # noqa: F401
 
 PARAM_RTOL, PARAM_ATOL = 1e-6, 1e-8
 

@@ -56,6 +56,7 @@ from luminoth_tpu_torch.utils.weights import (
 from test_torch_eval import jax_train_state, rescaled_jax_variables
 from test_torch_eval import write_config
 from test_torch_isolation import (  # noqa: F401
+    few_threads,
     jax_cache_isolation,
     lumi_home_isolation,
 )

@@ -6,6 +6,8 @@ run these in processes spawned by ``parallel.distributed.spawn_ranks``
 imports it by name, and JAX would cost each rank seconds and memory.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -13,8 +15,9 @@ import torch.distributed as dist
 from luminoth_tpu_torch import train as trainer
 from luminoth_tpu_torch.datasets import get_dataset
 from luminoth_tpu_torch.models import get_model
+from luminoth_tpu_torch.models.base import resnet
 from luminoth_tpu_torch.models.base.resnet import set_train_batch_norm
-from luminoth_tpu_torch.parallel import mesh
+from luminoth_tpu_torch.parallel import mesh, spatial
 from luminoth_tpu_torch.utils import config as torch_config
 from luminoth_tpu_torch.utils import training
 from luminoth_tpu_torch.utils.config import Config
@@ -77,18 +80,21 @@ def train_batch():
 
 
 def port_steps(config, variables, batch, steps=2, priorities=None,
-               device="cpu"):
+               device="cpu", space=1):
     """``steps`` train steps of the port on ``batch`` from ``variables``,
     as this process's rank of the default group when there is one.
 
     ``batch`` and ``priorities`` are the global batch's; a rank takes its
-    rows. Without ``priorities`` the draws come from
+    rows (with ``space`` > 1: the rows of its data index, and its band of
+    their height). Without ``priorities`` the draws come from
     ``train.step_generator``. Returns the metrics of each step, the model
     state after them, and per step the masked means' ``(local, global)``
     denominators.
     """
     rank, world = mesh.world()
     group = dist.group.WORLD if world > 1 else None
+    grid = spatial.make_grid(rank, world, space) if space > 1 else None
+    rows = (grid.data_index, grid.data) if grid else (rank, world)
     model = load_flax_variables(get_model(config.model.type)(config),
                                 variables).to(device)
     set_train_batch_norm(model, (config.model.get("base_network") or {}).get(
@@ -110,13 +116,16 @@ def port_steps(config, variables, batch, steps=2, priorities=None,
     mesh.global_count = recording
     try:
         step = trainer.make_train_step(
-            model, optimizer, group=group,
+            model, optimizer, group=group, grid=grid,
             reg_fn=lambda: training.l2_regularization_loss(params, decay))
-        rows = mesh.shard_batch(batch, rank, world)
-        device_batch = {k: torch.from_numpy(v).to(device)
-                        for k, v in rows.items()}
+        local = mesh.shard_batch(batch, *rows)
+        if grid is not None:
+            local["image"] = spatial.image_band(local["image"],
+                                                grid.space_index, space)
+        device_batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            device) for k, v in local.items()}
         if priorities is not None:
-            priorities = {stage: tuple(mesh.shard_rows(p, rank, world)
+            priorities = {stage: tuple(mesh.shard_rows(p, *rows)
                                        for p in pair)
                           for stage, pair in priorities.items()}
         metrics = []
@@ -133,14 +142,15 @@ def port_steps(config, variables, batch, steps=2, priorities=None,
                       for k, v in model.state_dict().items()}}
 
 
-def rank_steps(device, jobs, priorities=None):
+def rank_steps(device, jobs, priorities=None, space=1):
     """:func:`port_steps` of each ``(config, variables, batch)`` job as a
     spawned rank, TF32 off (a spawned process starts with PyTorch's
     defaults)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return [port_steps(config, variables, batch, priorities=priorities,
-                       device=device) for config, variables, batch in jobs]
+                       device=device, space=space)
+            for config, variables, batch in jobs]
 
 
 def checksum(state):
@@ -176,3 +186,153 @@ def rank_read(device, config, max_steps):
     trainer.run(config, get_dataset_fn=recorded_dataset,
                 max_steps=max_steps, device=device)
     return read[:max_steps]
+
+
+# ----------------------------------------------------- spatial (bands)
+
+def jax_mesh_config():
+    """The JAX package's 2-D mesh test's setting (``tests/test_parallel.py``
+    ``test_fasterrcnn_spatial_train_step_matches_single_device``): Faster
+    R-CNN ResNet-50 v1, 3 classes, pre/post NMS 64/16, minibatches 16/8,
+    plain SGD at 1e-3 on every parameter, no L2 term, no clip."""
+    config = torch_config.get_model_config(
+        torch_config.get_base_config("fasterrcnn"), Config({
+            "train": {"learning_rate": {"learning_rate": 1e-3},
+                      "optimizer": {"type": "gradient_descent"}},
+            "model": {
+                "network": {"num_classes": 3},
+                "base_network": {"architecture": "resnet_v1_50",
+                                 "fine_tune_from": None,
+                                 "arg_scope": {"weight_decay": 0.0}},
+                "rpn": {"proposals": {"pre_nms_top_n": 64,
+                                      "post_nms_top_n": 16},
+                        "target": {"minibatch_size": 16},
+                        "l2_regularization_scale": 0.0},
+                "rcnn": {"target": {"minibatch_size": 8},
+                         "l2_regularization_scale": 0.0},
+            }}))
+    return config
+
+
+def jax_mesh_batch():
+    """Two 64 x 64 images with the JAX test's two boxes each."""
+    rng = np.random.RandomState(2)
+    images = (rng.rand(2, 64, 64, 3) * 255).astype(np.float32)
+    gt = np.tile(np.asarray([[[5.0, 5, 40, 40, 0], [20, 20, 60, 60, 2]]],
+                            np.float32), (2, 1, 1))
+    return {"image": images, "gt_boxes": gt}
+
+
+def band_module(case):
+    """The module of a band case, from seed 0: ``TruncatedBaseNetwork`` of
+    ``case["config"]`` (batch norms with random running statistics), or
+    SSD's feature extractor (``case["ssd"]``), in ``case["dtype"]``."""
+    from luminoth_tpu_torch.models.base.base_network import (
+        TruncatedBaseNetwork,
+    )
+    from luminoth_tpu_torch.models.ssd.feature_extractor import (
+        SSDFeatureExtractor,
+    )
+
+    dtype = getattr(torch, case["dtype"])
+    torch.manual_seed(0)
+    if case.get("ssd"):
+        module = SSDFeatureExtractor(Config({}))
+    else:
+        module = TruncatedBaseNetwork(Config(case["config"]), dtype=dtype)
+    for m in module.modules():
+        if hasattr(m, "running_var"):
+            m.running_mean.uniform_(-0.2, 0.2)
+            m.running_var.uniform_(0.5, 1.5)
+    return module.to(dtype).train()
+
+
+def _band_forward(module, case, images):
+    dtype = getattr(torch, case["dtype"])
+    x = torch.from_numpy(images)
+    if case.get("ssd"):  # the extractor takes mean-subtracted NCHW images
+        x = (x - torch.tensor([123.68, 116.78, 103.94])).permute(0, 3, 1, 2)
+        return list(module(x.to(dtype).contiguous(
+            memory_format=torch.channels_last)))
+    return [module(x).permute(0, 3, 1, 2)]
+
+
+def band_case(case, space_index, space):
+    """One band case on this rank: the banded forward and backward of
+    ``case``'s module on ``case["images"]`` (the leader applies one random
+    cotangent per output map, drawn from ``case["seed"]``), then, on the
+    leader, the whole image's in this process. Returns (on the leader)
+    both outputs and, per parameter, the gradients' largest excess over
+    ``case["rtol"]`` times the whole image's gradient, and that gradient's
+    largest magnitude; None elsewhere."""
+    module = band_module(case)
+    params = list(module.parameters())
+    names = [n for n, _ in module.named_parameters()]
+    band = spatial.image_band(case["images"], space_index, space)
+    with spatial.space_shard(space_index, space, dist.group.WORLD, 0):
+        outs = _band_forward(module, case, band)
+        if spatial.is_follower():
+            loss = outs[0].sum() * 0.0
+        else:
+            rng = np.random.RandomState(case["seed"])
+            cots = [torch.from_numpy(rng.randn(*o.shape)).to(o.dtype)
+                    for o in outs]
+            loss = sum((o * c).sum() for o, c in zip(outs, cots))
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    summed = []
+    for g, p in zip(grads, params):  # in the parameters' dtype
+        g = torch.zeros_like(p) if g is None else g.contiguous()
+        dist.all_reduce(g)
+        summed.append(g)
+    if space_index:
+        return None
+    whole = _band_forward(module, case, case["images"])
+    want = torch.autograd.grad(sum((o * c).sum() for o, c in zip(whole, cots)),
+                               params, allow_unused=True)
+    excess, scale = {}, {}
+    for name, g, w in zip(names, summed, want):
+        w = torch.zeros_like(g) if w is None else w
+        excess[name] = float(((g - w).abs() - case["rtol"] * w.abs()).max())
+        scale[name] = float(w.abs().max())
+    return {"out": [o.detach() for o in outs],
+            "want": [o.detach() for o in whole],
+            "grad_excess": excess, "grad_scale": scale}
+
+
+@contextlib.contextmanager
+def planted_fault(fault):
+    """A fault planted in the banded step for the block:
+    ``"local_band_statistics"`` normalises each band by its own batch
+    moments; None plants nothing."""
+    saved = resnet.batch_moments
+    if fault == "local_band_statistics":
+        resnet.batch_moments = lambda x, dim: (x.mean(dim=dim),
+                                               x.square().mean(dim=dim))
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        resnet.batch_moments = saved
+
+
+def rank_spatial(device, tasks):
+    """Each task in a spawned rank of a ``data x space`` grid: ``("band",
+    case)`` runs :func:`band_case` (space = the world), ``("steps", config,
+    variables, batch, priorities, space, steps[, fault])`` runs
+    :func:`port_steps` on that grid, with the :func:`planted_fault`.
+    Returns the results in order."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = mesh.world()
+    out = []
+    for task in tasks:
+        if task[0] == "band":
+            out.append(band_case(task[1], rank, world))
+        else:
+            config, variables, batch, priorities, space, steps = task[1:7]
+            with planted_fault(task[7] if len(task) > 7 else None):
+                out.append(port_steps(config, variables, batch, steps=steps,
+                                      priorities=priorities, device=device,
+                                      space=space))
+    return out
